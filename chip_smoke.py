@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch).
+
+    python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 128]
+
+Needs one CUDA card, the CUDA toolkit (nvcc) and nvidia-smi; exits non-zero
+and prints no result without them. Phases, each printing its own line:
+
+  1. device         card name, and name + power limit from nvidia-smi
+  2. build          nvcc builds both kernels from ops/csrc/ (in parallel)
+  3. kernels        K1 (gf_xor.cu) and K2 (gf_bits.cu) against their plain
+                    PyTorch versions on the card, byte for byte, at the
+                    encode [4,10] and a fused [3,10] decode matrix (plus a
+                    wide [8,40] matrix) over B in {1 MiB, 1 MiB + 4, 4095, 1},
+                    a row-strided input, the refusal of a transposed one,
+                    and the golden RS(10,4) shard hashes; then CUDA-event
+                    times of each kernel and plain version at [10, 1 MiB]
+  4. pipeline       a seeded 1 GiB volume (.dat + .idx) through the port's
+                    write_ec_files / write_sorted_file_from_idx with
+                    new_coder() on cuda (kernel K1, the default): shard
+                    sha256s against the port's numpy cpu coder, rebuild of
+                    shards {0, 5, 13}, degraded reads with shard 3 gone
+  5. pipeline-bits  encode + rebuild of a smaller volume with kernel K2
+                    selected (SEAWEEDFS_TORCH_KERNEL=bits), against the
+                    cpu coder
+
+Each kernel's launch count is set to 0 just before its pipeline phase and
+read just after; a kernel that path never launched fails the run. The
+last lines are one JSON object of kernel numbers, the nvidia-smi line, and
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import mmap
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from seaweedfs_tpu_torch.models.coder import new_coder
+from seaweedfs_tpu_torch.ops import _build, gf256, gfmat, rs_bits, rs_xor
+from seaweedfs_tpu_torch.storage import ec_files, idx, types
+from seaweedfs_tpu_torch.storage.ec_locate import Geometry, locate_data
+from seaweedfs_tpu_torch.storage.ec_volume import EcVolume
+
+# sha256 of each shard row of RS(10,4) over rng(0xEC) [10, 4096] — the
+# port's copy of tests/test_golden_identity.py GOLDEN_SHARD_SHA256
+GOLDEN_SHARD_SHA256 = [
+    "9c7355adf15e9cbec105e1dfbf16624080ca5e58ad6f4e2418ab703bc0c3f509",
+    "71a8ffbe270988fb15d6e46614c29559185f003f5c70e7fab8190780dbea2377",
+    "99f63810daa37174f8296cf932cd35196bcae55584966f9b98e92161a663bf98",
+    "9011e6aeac31b87a2aea2bae59e3e5942caa18583d50be53d50b226fe44ab83a",
+    "e3beb7ebaad84c1592916124d4199996fab784900ef63958375a6a32cd11ff48",
+    "484de4f3ef9736d472a53931e89423e7daf5f210b7c2a3a6aa10fe86a89edeca",
+    "2c420ae77040ba1734d37b9095a02517b2b2aaa3d4de477168f66d8169c2de0d",
+    "714238432f92d7985b3226f5c9df7099c390b675d5e18d2ec5bb5aa69afc4919",
+    "97aac53066ca8d0f942b03aa906a6f0030aca47cdf9f20cec7e0b65fec7c268a",
+    "a6c91ad42931acaf2d0c39193070e41938fe6c210b32b4fe4d09db05e26eeb38",
+    "5b84659c44c7daa6c956ec16ee7f5d8155913df1ddd33265f2ab82ee42783205",
+    "89482c87207f8950afded88c6147b0619e15967a354d998a38890ebbcc4c5bc3",
+    "09f935bbea5adeee0dd7dc305b2d95e25c2cb269ebaaff01d66b2c689cbb7966",
+    "6fbd770c854d81a89eef262f06b512e0eb93f9febdb26f7267f80710114996a9",
+]
+
+MIB = 1 << 20
+REBUILD_LOST = (0, 5, 13)
+DEGRADED_SHARD = 3
+MIN_READS = 2000
+MIN_HEALTHY_READS = 500
+
+# memory rate by card (NVIDIA data sheets), for the bytes bound
+_MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+                ("H200", 4.8e12), ("H100", 3.35e12))
+
+# each kernel: its module, operand form and the TPU kernel it replaces
+KERNELS = {
+    "gf_xor": dict(
+        module=rs_xor, form="xor", source="seaweedfs_tpu_torch/ops/csrc/gf_xor.cu",
+        replaces="seaweedfs_tpu/ops/rs_xor.py:115"),
+    "gf_bits": dict(
+        module=rs_bits, form="bits",
+        source="seaweedfs_tpu_torch/ops/csrc/gf_bits.cu",
+        replaces="seaweedfs_tpu/ops/rs_pallas.py:33"),
+}
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def memory_rate(name: str) -> float:
+    for key, rate in _MEMORY_RATE:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no memory rate on file for card {name!r}")
+
+
+# -- kernels ------------------------------------------------------------------
+
+
+def _operand(kind: str, matrix: np.ndarray, dev) -> torch.Tensor:
+    host = gfmat.xor_coefficients(matrix) if kind == "xor" else \
+        gfmat.gf_matrix_to_bits(matrix)
+    return torch.from_numpy(host).to(dev)
+
+
+def _run(name: str, op, data, plain: bool):
+    mod = KERNELS[name]["module"]
+    if name == "gf_xor":
+        return (mod.gf_matmul_xor_torch if plain else mod.gf_matmul_xor_cuda)(
+            op, data)
+    return (mod.gf_matmul_bits_torch if plain else mod.gf_matmul_bits_cuda)(
+        op, data)
+
+
+def _event_ms(fn, flush: torch.Tensor) -> float:
+    """One CUDA-event timing of fn(). A read of `flush` (1 GiB, ~0.3 ms)
+    is queued first: it evicts fn's inputs from L2 without leaving dirty
+    lines behind, and it keeps the card busy while the host queues the
+    events and fn, so the events bracket fn's device time rather than the
+    host's launch overhead."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flush.sum()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _time_pair(kernel, plain, flush: torch.Tensor, runs: int = 40,
+               warmup_s: float = 1.0) -> tuple[list[float], list[float]]:
+    """CUDA-event times of kernel() and plain(), taken in turns (kernel,
+    plain, plain, kernel, ...) after at least `warmup_s` seconds of both
+    running, so clock ramp-up and drift fall on both sides alike."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warmup_s:
+        kernel()
+        plain()
+        torch.cuda.synchronize()
+    k_ms, p_ms = [], []
+    for i in range(runs):
+        order = ((kernel, k_ms), (plain, p_ms))
+        for fn, out in (order if i % 2 == 0 else order[::-1]):
+            out.append(_event_ms(fn, flush))
+    return k_ms, p_ms
+
+
+def _quartiles(xs: list[float]) -> str:
+    q = statistics.quantiles(xs, n=4)
+    return f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f}"
+
+
+def _sm_clock() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def check_kernels(dev, card: str) -> dict:
+    rng = np.random.default_rng(2024)
+    enc = gf256.parity_matrix(10, 4)                       # [4, 10]
+    present = tuple(i for i in range(14) if i not in REBUILD_LOST)
+    dec, _ = gfmat.fused_reconstruct_matrix(10, 4, present, REBUILD_LOST)
+    wide = rng.integers(0, 256, size=(8, 40), dtype=np.uint8)
+    matrices = {"encode[4,10]": enc, "decode[3,10]": dec, "wide[8,40]": wide}
+    widths = (MIB, MIB + 4, 4095, 1)
+    results = {}
+    for name, spec in KERNELS.items():
+        worst = 0
+        checked = 0
+        for mname, mat in matrices.items():
+            op = _operand(spec["form"], mat, dev)
+            c = mat.shape[1]
+            for b in widths:
+                data = torch.from_numpy(
+                    rng.integers(0, 256, size=(c, b), dtype=np.uint8)).to(dev)
+                got = _run(name, op, data, plain=False)
+                want = _run(name, op, data, plain=True)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int16) - want.to(torch.int16))
+                          .abs().max().item())
+                worst = max(worst, err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} {mname} B={b}: kernel "
+                                         f"differs from plain (max {err})")
+                checked += 1
+            # a column slice of a wider buffer: rows strided, bytes unit-stride
+            base = torch.from_numpy(rng.integers(
+                0, 256, size=(c, 8192 + 13), dtype=np.uint8)).to(dev)
+            view = base[:, 5:5 + 8192]
+            got = _run(name, op, view, plain=False)
+            want = _run(name, op, view.contiguous(), plain=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {mname}: row-strided input "
+                                     f"differs from plain")
+            checked += 1
+        # a transposed (byte-strided) input is refused, not copied
+        op = _operand(spec["form"], enc, dev)
+        bad = torch.zeros((4096, 10), dtype=torch.uint8, device=dev).t()
+        try:
+            _run(name, op, bad, plain=False)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name} accepted a byte-strided input")
+        # golden RS(10,4) shard hashes through the kernel
+        g = np.random.default_rng(0xEC).integers(0, 256, size=(10, 4096),
+                                                 dtype=np.uint8)
+        parity = _run(name, op, torch.from_numpy(g).to(dev), plain=False)
+        shards = np.concatenate([g, parity.cpu().numpy()])
+        hashes = [hashlib.sha256(s.tobytes()).hexdigest() for s in shards]
+        if hashes != GOLDEN_SHARD_SHA256:
+            raise AssertionError(f"{name}: golden shard hashes differ")
+        # times at the main path's shape: [10, 1 MiB] through the encode matrix
+        data = torch.from_numpy(
+            rng.integers(0, 256, size=(10, MIB), dtype=np.uint8)).to(dev)
+        flush = torch.zeros(1024 * MIB, dtype=torch.uint8, device=dev)
+        k_ms, p_ms = _time_pair(lambda: _run(name, op, data, plain=False),
+                                lambda: _run(name, op, data, plain=True),
+                                flush)
+        ms, plain_ms = statistics.median(k_ms), statistics.median(p_ms)
+        moved = (10 + 4) * MIB
+        bound_ms = moved / memory_rate(card) * 1e3
+        log("kernels", f"{name}: {checked} shapes byte-identical to plain, "
+                       f"transposed input refused, golden hashes match; "
+                       f"[10, 1 MiB] encode median {ms:.4f} ms (quartiles "
+                       f"{_quartiles(k_ms)}), plain {plain_ms:.4f} ms "
+                       f"(quartiles {_quartiles(p_ms)}), bytes bound "
+                       f"{bound_ms:.4f} ms = {moved} B at "
+                       f"{memory_rate(card):.3g} B/s; SM clock, max after "
+                       f"timing: {_sm_clock()}; on {card}")
+        results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms)
+    return results
+
+
+# -- pipeline -----------------------------------------------------------------
+
+
+def make_volume(base: str, size_bytes: int, seed: int) -> list[tuple]:
+    """Seeded .dat + .idx: an 8-byte superblock, then padded needle records
+    of 1-64 KiB of random bytes. Returns [(needle_id, offset, length)]."""
+    rng = np.random.default_rng(seed)
+    needles = []
+    offset = 8
+    nid = 1
+    while offset < size_bytes:
+        size = int(rng.integers(1, 64 * 1024 + 1))
+        length = types.actual_size(size)
+        needles.append((nid, offset, size, length))
+        offset += length
+        nid += 1
+    dat = rng.integers(0, 256, size=offset, dtype=np.uint8)
+    dat[:8] = np.frombuffer(b"\x03" + bytes(7), np.uint8)
+    dat.tofile(base + ".dat")
+    ids = np.array([n[0] for n in needles], np.uint64)
+    offs = np.array([types.offset_to_stored(n[1]) for n in needles], np.uint64)
+    sizes = np.array([n[2] for n in needles], np.int32)
+    with open(base + ".idx", "wb") as f:
+        f.write(idx.pack_index_arrays(ids, offs, sizes))
+    return [(n[0], n[1], n[3]) for n in needles]
+
+
+def shard_hashes(base: str, geo: Geometry) -> list[str]:
+    out = []
+    for i in range(geo.total_shards):
+        h = hashlib.sha256()
+        with open(geo.shard_file_name(base, i), "rb") as f:
+            while chunk := f.read(16 * MIB):
+                h.update(chunk)
+        out.append(h.hexdigest())
+    return out
+
+
+def cpu_oracle_hashes(base: str, geo: Geometry, workdir: str) -> list[str]:
+    """Shard sha256s of the same volume through the port's numpy coder."""
+    odir = tempfile.mkdtemp(prefix="oracle-", dir=workdir)
+    try:
+        obase = os.path.join(odir, "v")
+        os.symlink(os.path.abspath(base + ".dat"), obase + ".dat")
+        ec_files.write_ec_files(obase, new_coder(backend="cpu"), geo)
+        return shard_hashes(obase, geo)
+    finally:
+        shutil.rmtree(odir)
+
+
+def encode_and_rebuild(phase: str, base: str, geo: Geometry, coder,
+                       workdir: str, card: str) -> tuple[list[str], dict]:
+    dat_bytes = os.path.getsize(base + ".dat")
+    t0 = time.perf_counter()
+    stats = ec_files.write_ec_files(base, coder, geo)
+    ec_files.write_sorted_file_from_idx(base)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    hashes = shard_hashes(base, geo)
+    t0 = time.perf_counter()
+    oracle = cpu_oracle_hashes(base, geo, workdir)
+    oracle_s = time.perf_counter() - t0
+    if hashes != oracle:
+        bad = [i for i in range(geo.total_shards) if hashes[i] != oracle[i]]
+        raise AssertionError(f"{phase}: shards {bad} differ from the cpu coder")
+    log(phase, f"encode of {dat_bytes} B: {enc_s:.3f} s = "
+               f"{dat_bytes / enc_s / 1e9:.3f} GB/s end to end on {card} "
+               f"({stats.batches} slabs; reader: read {stats.read_s:.3f} s, "
+               f"encode calls {stats.dispatch_s:.3f} s; coordinator: device "
+               f"wait {stats.device_wait_s:.3f} s; writers: "
+               f"{stats.write_s:.3f} thread-s); 14 shard sha256s match the "
+               f"numpy cpu coder ({oracle_s:.1f} s)")
+    for i in REBUILD_LOST:
+        os.remove(geo.shard_file_name(base, i))
+    rstats: dict = {}
+    t0 = time.perf_counter()
+    rebuilt = ec_files.rebuild_ec_files(base, coder, geo, stats=rstats)
+    torch.cuda.synchronize()
+    reb_s = time.perf_counter() - t0
+    if tuple(rebuilt) != REBUILD_LOST:
+        raise AssertionError(f"{phase}: rebuilt {rebuilt}, not {REBUILD_LOST}")
+    after = shard_hashes(base, geo)
+    if after != hashes:
+        raise AssertionError(f"{phase}: rebuilt shards differ")
+    read_b = rstats["survivor_bytes_read"]
+    log(phase, f"rebuild of shards {list(REBUILD_LOST)}: {reb_s:.3f} s = "
+               f"{read_b / reb_s / 1e9:.3f} GB/s of survivors read end to end "
+               f"on {card}; sha-identical")
+    return hashes, dict(encode_gbps=dat_bytes / enc_s / 1e9,
+                        rebuild_gbps=read_b / reb_s / 1e9)
+
+
+def degraded_reads(base: str, geo: Geometry, coder, needles,
+                   seed: int) -> tuple[int, int]:
+    os.remove(geo.shard_file_name(base, DEGRADED_SHARD))
+    vol = EcVolume(base, coder, geo=geo)
+    try:
+        est = vol.dat_size_estimate
+        touching = []
+        others = []
+        for nid, off, length in needles:
+            ids = {iv.to_shard_id_and_offset(geo)[0]
+                   for iv in locate_data(geo, est, off, length)}
+            (touching if DEGRADED_SHARD in ids else others).append(
+                (nid, off, length))
+        rng = np.random.default_rng(seed)
+        extra = max(MIN_HEALTHY_READS, MIN_READS - len(touching))
+        pick = rng.choice(len(others), size=min(len(others), extra),
+                          replace=False)
+        chosen = touching + [others[i] for i in sorted(pick)]
+        with open(base + ".dat", "rb") as f, \
+                mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as dat:
+            for nid, off, length in chosen:
+                got = vol.read_needle_blob(nid)
+                if got != dat[off:off + length]:
+                    raise AssertionError(f"needle {nid} differs from its "
+                                         f".dat extent")
+        return len(touching), len(chosen)
+    finally:
+        vol.close()
+
+
+def pipeline(phase: str, kernel: str, volume_mb: int, seed: int, degraded: bool,
+             workdir: str, card: str) -> dict:
+    os.environ["SEAWEEDFS_TORCH_KERNEL"] = KERNELS[kernel]["form"]
+    geo = Geometry()
+    vdir = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    try:
+        base = os.path.join(vdir, "1")
+        t0 = time.perf_counter()
+        needles = make_volume(base, volume_mb * MIB, seed)
+        log(phase, f"volume: {len(needles)} needles, "
+                   f"{os.path.getsize(base + '.dat')} B in "
+                   f"{time.perf_counter() - t0:.1f} s")
+        coder = new_coder()
+        for spec in KERNELS.values():
+            spec["module"].KERNEL.reset()
+        _, rates = encode_and_rebuild(phase, base, geo, coder, workdir, card)
+        if degraded:
+            touching, n = degraded_reads(base, geo, coder, needles, seed)
+            log(phase, f"{n} needle reads byte-exact, {touching} of them "
+                       f"degraded (touching lost shard {DEGRADED_SHARD})")
+        counts = {k: spec["module"].KERNEL.launches
+                  for k, spec in KERNELS.items()}
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{phase}: {kernel} was never launched")
+        log(phase, f"launches: {counts}")
+        return dict(launches=counts[kernel], **rates)
+    finally:
+        shutil.rmtree(vdir)
+        os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
+
+
+# -- main ---------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--volume-mb", type=int, default=1024,
+                    help="size of the K1 pipeline's volume (default 1024)")
+    ap.add_argument("--bits-volume-mb", type=int, default=128,
+                    help="size of the K2 pipeline's volume (default 128)")
+    ap.add_argument("--workdir", default=None,
+                    help="where volumes are written (default: TMPDIR)")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs a CUDA card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log("device", f"torch {torch.__version__} cuda {torch.version.cuda}; "
+                  f"{card}; nvidia-smi: {smi}")
+
+    t0 = time.perf_counter()
+    _build.build()
+    log("build", f"nvcc built {list(_build.SOURCES)} in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    for src in _build.SOURCES:
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", f"{src}: {line.strip()}")
+
+    kernel_numbers = check_kernels(dev, card)
+
+    k1 = pipeline("pipeline", "gf_xor", args.volume_mb, seed=1,
+                  degraded=True, workdir=args.workdir, card=card)
+    k2 = pipeline("pipeline-bits", "gf_bits", args.bits_volume_mb, seed=2,
+                  degraded=False, workdir=args.workdir, card=card)
+
+    rows = []
+    for name, path in (("gf_xor", k1), ("gf_bits", k2)):
+        spec = KERNELS[name]
+        rows.append(dict(
+            name=name, route="cuda", source=spec["source"],
+            replaces=spec["replaces"], launches=path["launches"],
+            max_abs_err=kernel_numbers[name]["max_abs_err"],
+            ms=kernel_numbers[name]["ms"],
+            plain_ms=kernel_numbers[name]["plain_ms"],
+            bound_ms=kernel_numbers[name]["bound_ms"], bound_by="bytes",
+            library_ms=None))
+    log("done", f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
