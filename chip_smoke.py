@@ -2,29 +2,46 @@
 """GPU smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch).
 
     python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 128]
+                          [--sched-volume-mb 512] [--sched-volumes 8]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and nvidia-smi; exits non-zero
 and prints no result without them. Phases, each printing its own line:
 
-  1. device         card name, and name + power limit from nvidia-smi
-  2. build          nvcc builds both kernels from ops/csrc/ (in parallel)
-  3. kernels        K1 (gf_xor.cu) and K2 (gf_bits.cu) against their plain
-                    PyTorch versions on the card, byte for byte, at the
-                    encode [4,10] and a fused [3,10] decode matrix (plus a
-                    wide [8,40] matrix) over B in {1 MiB, 1 MiB + 4, 4095, 1},
-                    a row-strided input, the refusal of a transposed one,
-                    and the golden RS(10,4) shard hashes; then CUDA-event
-                    times of each kernel and plain version at [10, 1 MiB]
-  4. pipeline       a seeded 1 GiB volume (.dat + .idx) through the port's
-                    write_ec_files / write_sorted_file_from_idx with
-                    new_coder() on cuda (kernel K1, the default): shard
-                    sha256s against the port's numpy cpu coder, rebuild of
-                    shards {0, 5, 13}, degraded reads with shard 3 gone
-  5. pipeline-bits  encode + rebuild of a smaller volume with kernel K2
-                    selected (SEAWEEDFS_TORCH_KERNEL=bits), against the
-                    cpu coder
+  1. device          card name, and name + power limit from nvidia-smi
+  2. build           nvcc builds K1 and K2 from ops/csrc/ and K3 (the
+                     gf_sel.cu template) once per encode matrix it serves
+                     here, all in parallel, with each build's time
+  3. kernels         K1 (gf_xor.cu), K2 (gf_bits.cu) and K3 (gf_sel.cu)
+                     against their plain PyTorch versions on the card, byte
+                     for byte: K1 and K2 at the encode [4,10] and a fused
+                     [3,10] decode matrix (plus a wide [8,40] matrix), K3 at
+                     the encode matrices of RS(10,4), RS(6,3), RS(12,4) and
+                     lrc_10_2_2, each over B in {1 MiB, 1 MiB + 4, 4095, 1},
+                     K1 and K3 also at a stacked flush's width (6 MiB +
+                     4093: several slabs and a ragged tail side by side,
+                     row stride not a multiple of 16, as the scheduler
+                     packs them), a row-strided input, the refusal of a
+                     transposed one,
+                     and the golden RS(10,4) shard hashes; then CUDA-event
+                     times of each kernel and plain version at [10, 1 MiB]
+  4. pipeline        a seeded 1 GiB volume (.dat + .idx) through the port's
+                     write_ec_files / write_sorted_file_from_idx with
+                     new_coder() on cuda (kernel K1, the default): shard
+                     sha256s against the port's numpy cpu coder, rebuild of
+                     shards {0, 5, 13}, degraded reads with shard 3 gone
+  5. pipeline-bits   encode + rebuild of a smaller volume with kernel K2
+                     selected (SEAWEEDFS_TORCH_KERNEL=bits), against the
+                     cpu coder
+  6. pipeline-sched  8 seeded volumes encoding at once through one coder
+                     with SEAWEEDFS_TORCH_KERNEL=sel: their slabs share the
+                     dispatch scheduler's encode lane, one K3 launch per
+                     flush; then all 8 rebuild shards {0, 5, 13} at once
+                     and 8 readers read with shard 3 gone (K1, on the
+                     reconstruct lanes). Shards against the cpu coder;
+                     K3 launches must equal the encode lane's batches, and
+                     some batch must have stacked more than one slab
 
-Each kernel's launch count is set to 0 just before its pipeline phase and
+Each kernel's launch count is set to 0 just before each pipeline phase and
 read just after; a kernel that path never launched fails the run. The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -42,16 +59,20 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from seaweedfs_tpu_torch.models import geometry
 from seaweedfs_tpu_torch.models.coder import new_coder
-from seaweedfs_tpu_torch.ops import _build, gf256, gfmat, rs_bits, rs_xor
+from seaweedfs_tpu_torch.ops import _build, gf256, gfmat, rs_bits, rs_sel, \
+    rs_xor
 from seaweedfs_tpu_torch.storage import ec_files, idx, types
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry, locate_data
 from seaweedfs_tpu_torch.storage.ec_volume import EcVolume
+from seaweedfs_tpu_torch.utils import stats as ec_stats
 
 # sha256 of each shard row of RS(10,4) over rng(0xEC) [10, 4096] — the
 # port's copy of tests/test_golden_identity.py GOLDEN_SHARD_SHA256
@@ -73,6 +94,10 @@ GOLDEN_SHARD_SHA256 = [
 ]
 
 MIB = 1 << 20
+# the width of a stacked flush of the scheduler's lanes: six 1 MiB slabs
+# and a ragged tail, packed side by side, so the row stride is no
+# multiple of 16 and most chunks take the kernels' masked loads
+STACKED_WIDTH = 6 * MIB + 4093
 REBUILD_LOST = (0, 5, 13)
 DEGRADED_SHARD = 3
 MIN_READS = 2000
@@ -91,6 +116,10 @@ KERNELS = {
         module=rs_bits, form="bits",
         source="seaweedfs_tpu_torch/ops/csrc/gf_bits.cu",
         replaces="seaweedfs_tpu/ops/rs_pallas.py:33"),
+    "gf_sel": dict(
+        module=rs_sel, form="sel",
+        source="seaweedfs_tpu_torch/ops/csrc/gf_sel.cu",
+        replaces="seaweedfs_tpu/ops/rs_xor.py:247"),
 }
 
 
@@ -108,7 +137,18 @@ def memory_rate(name: str) -> float:
 # -- kernels ------------------------------------------------------------------
 
 
-def _operand(kind: str, matrix: np.ndarray, dev) -> torch.Tensor:
+def sel_matrices() -> dict[str, np.ndarray]:
+    """The encode matrices K3 is built for and checked at: RS(10,4) (the
+    default), RS(6,3) and RS(12,4) (BASELINE config #5), lrc_10_2_2."""
+    return {name: geometry.get(name).parity_matrix()
+            for name in ("rs_10_4", "rs_6_3", "rs_12_4", "lrc_10_2_2")}
+
+
+def _operand(kind: str, matrix: np.ndarray, dev):
+    """The kernel's operand: K3 takes the matrix itself (it is baked into
+    the kernel), K1 and K2 derived forms on the card."""
+    if kind == "sel":
+        return matrix
     host = gfmat.xor_coefficients(matrix) if kind == "xor" else \
         gfmat.gf_matrix_to_bits(matrix)
     return torch.from_numpy(host).to(dev)
@@ -118,6 +158,9 @@ def _run(name: str, op, data, plain: bool):
     mod = KERNELS[name]["module"]
     if name == "gf_xor":
         return (mod.gf_matmul_xor_torch if plain else mod.gf_matmul_xor_cuda)(
+            op, data)
+    if name == "gf_sel":
+        return (mod.gf_matmul_sel_torch if plain else mod.gf_matmul_sel_cuda)(
             op, data)
     return (mod.gf_matmul_bits_torch if plain else mod.gf_matmul_bits_cuda)(
         op, data)
@@ -176,12 +219,15 @@ def check_kernels(dev, card: str) -> dict:
     dec, _ = gfmat.fused_reconstruct_matrix(10, 4, present, REBUILD_LOST)
     wide = rng.integers(0, 256, size=(8, 40), dtype=np.uint8)
     matrices = {"encode[4,10]": enc, "decode[3,10]": dec, "wide[8,40]": wide}
-    widths = (MIB, MIB + 4, 4095, 1)
+    sel = {f"{n}{list(m.shape)}": m for n, m in sel_matrices().items()}
     results = {}
     for name, spec in KERNELS.items():
         worst = 0
         checked = 0
-        for mname, mat in matrices.items():
+        # K3 (encode lane) and K1 (reconstruct lanes) take stacked flushes
+        widths = (MIB, MIB + 4, 4095, 1) + (
+            (STACKED_WIDTH,) if name in ("gf_xor", "gf_sel") else ())
+        for mname, mat in (sel if name == "gf_sel" else matrices).items():
             op = _operand(spec["form"], mat, dev)
             c = mat.shape[1]
             for b in widths:
@@ -400,6 +446,170 @@ def pipeline(phase: str, kernel: str, volume_mb: int, seed: int, degraded: bool,
         os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
 
 
+def _all_at_once(fn, items) -> list:
+    """fn(item) for every item, one thread each, started together; the
+    results in order. The first error raises."""
+    results = [None] * len(items)
+    errors = []
+
+    def run(i, item):
+        try:
+            results[i] = fn(item)
+        except BaseException as e:  # raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, item))
+               for i, item in enumerate(items)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _lane_counts() -> dict:
+    """Slabs and batches per lane of the card's coder so far (its batches
+    carry reason single_device; the numpy oracle's say cpu_explicit)."""
+    return {lane: (ec_stats.EC_DISPATCH_SLABS.value(lane=lane),
+                   ec_stats.EC_DISPATCH_BATCHES.value(
+                       lane=lane, reason="single_device"),
+                   ec_stats.EC_DISPATCH_WINDOW_WAIT.snapshot(lane=lane))
+            for lane in ("encode", "reconstruct")}
+
+
+def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
+                   card: str) -> dict:
+    """BASELINE config #4: `n_volumes` volumes encoding at once on one
+    coder, their slabs meeting in the dispatch scheduler's encode lane
+    (K3, SEAWEEDFS_TORCH_KERNEL=sel); then concurrent rebuilds and
+    degraded reads on the reconstruct lanes (K1)."""
+    phase = "pipeline-sched"
+    os.environ["SEAWEEDFS_TORCH_KERNEL"] = "sel"
+    geo = Geometry()
+    vdir = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    try:
+        bases = [os.path.join(vdir, str(v + 1)) for v in range(n_volumes)]
+        t0 = time.perf_counter()
+        needles = [make_volume(b, volume_mb * MIB, seed + v)
+                   for v, b in enumerate(bases)]
+        dat_bytes = sum(os.path.getsize(b + ".dat") for b in bases)
+        log(phase, f"{n_volumes} volumes: {sum(map(len, needles))} needles, "
+                   f"{dat_bytes} B in {time.perf_counter() - t0:.1f} s")
+        coder = new_coder()
+        for spec in KERNELS.values():
+            spec["module"].KERNEL.reset()
+        lanes0 = _lane_counts()
+
+        def encode(base):
+            st = ec_files.write_ec_files(base, coder, geo)
+            ec_files.write_sorted_file_from_idx(base)
+            return st
+
+        t0 = time.perf_counter()
+        enc_stats = _all_at_once(encode, bases)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        lanes1 = _lane_counts()
+        hashes = [shard_hashes(b, geo) for b in bases]
+        t0 = time.perf_counter()
+        for v, base in enumerate(bases):
+            if hashes[v] != cpu_oracle_hashes(base, geo, workdir):
+                raise AssertionError(f"{phase}: volume {v + 1}'s shards "
+                                     f"differ from the cpu coder")
+        oracle_s = time.perf_counter() - t0
+        tot = {f: sum(getattr(st, f) for st in enc_stats)
+               for f in ("bytes", "batches", "wall_s", "read_s",
+                         "dispatch_s", "device_wait_s", "write_s")}
+        log(phase, f"encode of {n_volumes} x {volume_mb} MiB at once: "
+                   f"{dat_bytes} B in {enc_s:.3f} s = "
+                   f"{dat_bytes / enc_s / 1e9:.3f} GB/s aggregate end to end "
+                   f"on {card}; EncodeStats summed over the {n_volumes} "
+                   f"pipelines: {tot['batches']} slabs, wall "
+                   f"{tot['wall_s']:.3f} s, read {tot['read_s']:.3f} s, "
+                   f"submit {tot['dispatch_s']:.3f} s, device wait "
+                   f"{tot['device_wait_s']:.3f} s, write "
+                   f"{tot['write_s']:.3f} thread-s; "
+                   f"{n_volumes * geo.total_shards} shard sha256s match the "
+                   f"numpy cpu coder ({oracle_s:.1f} s)")
+
+        def rebuild(base):
+            for i in REBUILD_LOST:
+                os.remove(geo.shard_file_name(base, i))
+            rstats: dict = {}
+            got = ec_files.rebuild_ec_files(base, coder, geo, stats=rstats)
+            if tuple(got) != REBUILD_LOST:
+                raise AssertionError(f"{phase}: rebuilt {got}")
+            return rstats["survivor_bytes_read"]
+
+        t0 = time.perf_counter()
+        read_b = sum(_all_at_once(rebuild, bases))
+        torch.cuda.synchronize()
+        reb_s = time.perf_counter() - t0
+        if [shard_hashes(b, geo) for b in bases] != hashes:
+            raise AssertionError(f"{phase}: rebuilt shards differ")
+        log(phase, f"rebuild of shards {list(REBUILD_LOST)} of all "
+                   f"{n_volumes} at once: {reb_s:.3f} s = "
+                   f"{read_b / reb_s / 1e9:.3f} GB/s of survivors read "
+                   f"aggregate end to end on {card}; sha-identical")
+        lanes2 = _lane_counts()
+
+        def degraded(v):
+            return degraded_reads(bases[v], geo, coder, needles[v], seed + v)
+
+        t0 = time.perf_counter()
+        reads = _all_at_once(degraded, list(range(n_volumes)))
+        read_s = time.perf_counter() - t0
+        lanes3 = _lane_counts()
+        log(phase, f"{sum(n for _, n in reads)} needle reads by "
+                   f"{n_volumes} readers at once byte-exact in "
+                   f"{read_s:.3f} s, {sum(t for t, _ in reads)} of them "
+                   f"degraded (touching lost shard {DEGRADED_SHARD})")
+
+        counts = {k: spec["module"].KERNEL.launches
+                  for k, spec in KERNELS.items()}
+        enc_slabs = lanes1["encode"][0] - lanes0["encode"][0]
+        enc_batches = lanes1["encode"][1] - lanes0["encode"][1]
+        rec_batches = lanes3["reconstruct"][1] - lanes1["reconstruct"][1]
+        for lane, a, b, what in (("encode", lanes0, lanes1, "encode"),
+                                 ("reconstruct", lanes1, lanes2, "rebuild"),
+                                 ("reconstruct", lanes2, lanes3,
+                                  "degraded reads")):
+            slabs = a[lane][0], b[lane][0]
+            batches = a[lane][1], b[lane][1]
+            waits = a[lane][2], b[lane][2]
+            n_sl = slabs[1] - slabs[0]
+            n_b = batches[1] - batches[0]
+            wait = waits[1]["sum"] - waits[0]["sum"]
+            log(phase, f"{what}: {lane} lane {n_sl:.0f} slabs in "
+                       f"{n_b:.0f} batches, batch factor "
+                       f"{n_sl / max(n_b, 1):.3f}, mean queue wait "
+                       f"{wait / max(n_sl, 1) * 1e3:.3f} ms")
+        arena = ec_stats.ec_dispatch_stats()["arena"]
+        log(phase, f"launches: {counts}; stack arena {arena}")
+        if counts["gf_sel"] <= 0:
+            raise AssertionError(f"{phase}: gf_sel was never launched")
+        if counts["gf_sel"] != enc_batches:
+            raise AssertionError(f"{phase}: {counts['gf_sel']} gf_sel "
+                                 f"launches for {enc_batches} encode batches")
+        if not enc_slabs > enc_batches:
+            raise AssertionError(f"{phase}: no encode batch stacked more "
+                                 f"than one slab ({enc_slabs} slabs, "
+                                 f"{enc_batches} batches)")
+        if counts["gf_xor"] <= 0 or counts["gf_xor"] != rec_batches:
+            raise AssertionError(f"{phase}: {counts['gf_xor']} gf_xor "
+                                 f"launches for {rec_batches} reconstruct "
+                                 f"batches")
+        return dict(launches=counts["gf_sel"],
+                    encode_gbps=dat_bytes / enc_s / 1e9,
+                    rebuild_gbps=read_b / reb_s / 1e9,
+                    batch_factor=enc_slabs / enc_batches)
+    finally:
+        shutil.rmtree(vdir)
+        os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -409,6 +619,12 @@ def main(argv=None) -> int:
                     help="size of the K1 pipeline's volume (default 1024)")
     ap.add_argument("--bits-volume-mb", type=int, default=128,
                     help="size of the K2 pipeline's volume (default 128)")
+    ap.add_argument("--sched-volume-mb", type=int, default=512,
+                    help="size of each concurrent volume of the K3 "
+                         "pipeline (default 512)")
+    ap.add_argument("--sched-volumes", type=int, default=8,
+                    help="volumes encoding at once in the K3 pipeline "
+                         "(default 8)")
     ap.add_argument("--workdir", default=None,
                     help="where volumes are written (default: TMPDIR)")
     args = ap.parse_args(argv)
@@ -426,14 +642,23 @@ def main(argv=None) -> int:
     log("device", f"torch {torch.__version__} cuda {torch.version.cuda}; "
                   f"{card}; nvidia-smi: {smi}")
 
+    # one nvcc per library, all started together: K1, K2, and K3 once per
+    # encode matrix it serves here (the scheduler phase would otherwise
+    # build its matrix on the flusher thread, holding every lane)
     t0 = time.perf_counter()
-    _build.build()
-    log("build", f"nvcc built {list(_build.SOURCES)} in "
+    sel = sel_matrices()
+    built = _build.build(_build.SOURCES, specialised=[
+        (rs_sel.TEMPLATE, m) for m in sel.values()])
+    log("build", f"nvcc built {len(built)} libraries in "
                  f"{time.perf_counter() - t0:.1f} s")
-    for src in _build.SOURCES:
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{src}: {line.strip()}")
+    labels = {_build.specialised_path(rs_sel.TEMPLATE, m).name:
+              f"{rs_sel.TEMPLATE} for {name}{list(m.shape)}"
+              for name, m in sel.items()}
+    for key, b in built.items():
+        report = [line.strip() for line in _build.build_log(b.path)
+                  .splitlines() if "registers" in line or "spill" in line]
+        log("build", f"{labels.get(key, key)}: {b.seconds:.1f} s; "
+                     f"{'; '.join(report)}")
 
     kernel_numbers = check_kernels(dev, card)
 
@@ -441,9 +666,11 @@ def main(argv=None) -> int:
                   degraded=True, workdir=args.workdir, card=card)
     k2 = pipeline("pipeline-bits", "gf_bits", args.bits_volume_mb, seed=2,
                   degraded=False, workdir=args.workdir, card=card)
+    k3 = pipeline_sched(args.sched_volume_mb, args.sched_volumes, seed=3,
+                        workdir=args.workdir, card=card)
 
     rows = []
-    for name, path in (("gf_xor", k1), ("gf_bits", k2)):
+    for name, path in (("gf_xor", k1), ("gf_bits", k2), ("gf_sel", k3)):
         spec = KERNELS[name]
         rows.append(dict(
             name=name, route="cuda", source=spec["source"],

@@ -9,7 +9,11 @@ backends that produce identical bytes:
 
 The environment variable SEAWEEDFS_TORCH_CODER overrides the default
 backend for the whole process. There is no silent CPU fallback: asking
-for "cuda" where no CUDA device exists raises.
+for "cuda" where no CUDA device exists raises. A host coder carries
+``backend_reason``: why it runs on the CPU ("cpu_env" when the process
+was pinned by SEAWEEDFS_TORCH_CODER, "cpu_explicit" when the call site
+asked for it); the dispatch scheduler reports it as the ``reason`` of
+its batches (ops/dispatch.py).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ def new_coder(
     initialise CUDA then), and the codec first touches the device when a
     call moves data to it — so a process may fork workers after building
     its coder."""
+    host_reason = "cpu_env" if backend is None else "cpu_explicit"
     if backend is None:
         backend = os.environ.get("SEAWEEDFS_TORCH_CODER", "cuda")
     if backend == "cuda":
@@ -75,6 +80,8 @@ def new_coder(
     if backend == "cpu":
         from ..ops.rs_cpu import RSCodecCPU
 
-        return RSCodecCPU(data_shards, parity_shards, geometry=geometry)
+        coder = RSCodecCPU(data_shards, parity_shards, geometry=geometry)
+        coder.backend_reason = host_reason
+        return coder
     raise ValueError(f"unknown erasure coder backend {backend!r}; expected "
                      f"one of {BACKENDS}")

@@ -13,7 +13,9 @@ product over byte columns, ``out[R, B] = M[R, C] (x) data[C, B]``:
 
 Routing (``dispatch_matmul``) picks the formulation by the environment
 variable SEAWEEDFS_TORCH_KERNEL: ``xor`` (the default, kernel K1 in
-ops/rs_xor.py) or ``bits`` (kernel K2 in ops/rs_bits.py). On a CUDA
+ops/rs_xor.py), ``bits`` (kernel K2 in ops/rs_bits.py) or ``sel``
+(kernel K3 in ops/rs_sel.py, compiled per matrix; it takes the encode
+matrices, and the fused decode matrices go to ``xor``). On a CUDA
 device the chosen kernel launches or the call raises; on the CPU its
 plain PyTorch version runs. Results are uint8 tensors on the codec's
 device; callers that need host bytes copy them (``.cpu().numpy()``).
@@ -31,9 +33,11 @@ import threading
 import numpy as np
 import torch
 
-from . import gf256, gfmat, rs_bits, rs_xor
+from . import gf256, gfmat, rs_bits, rs_sel, rs_xor
 
-KERNELS = ("xor", "bits")
+KERNELS = ("xor", "bits", "sel")
+# keys of the fused decode matrices: one per survivor and missing set
+DECODE_KEYS = ("fdec", "fdecs", "gdecs")
 
 
 def kernel_choice() -> str:
@@ -79,6 +83,13 @@ def dispatch_matmul(matrix: np.ndarray, data: torch.Tensor,
     formulation. `matrix` is the byte-form GF(256) matrix and `key` its
     compact cache identity."""
     kind = kernel_choice()
+    if kind == "sel":
+        if key[0] not in DECODE_KEYS:
+            return rs_sel.gf_matmul_sel(matrix, data, key=key)
+        # K3 is compiled per matrix; a decode matrix exists per failure
+        # pattern (up to C(n, k) of them), so it takes the run-time-matrix
+        # kernel K1 and K3 keeps the one encode matrix per geometry
+        kind = "xor"
     op = op_on_device((kind, *key), gfmat.derived(kind, key, matrix),
                       data.device)
     if kind == "xor":

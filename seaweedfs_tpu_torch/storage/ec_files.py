@@ -6,15 +6,17 @@ ec_encoder.go WriteEcFiles / RebuildEcFiles): the same reader /
 coordinator / shard-writer pipeline, the same recycled read buffers, the
 same bytes. Launches on a CUDA coder are asynchronous, so the pattern
 
-    read slab -> launch encode -> write the previous slab's shards -> wait for parity
+    read slab -> submit encode -> write the previous slab's shards -> wait for parity
 
-keeps disk and card busy at once. Shard bytes are independent of batch
-size (parity is a per-byte-column GF matmul), so output files are
+keeps disk and card busy at once. Slabs go through the coder's EC
+dispatch scheduler (ops/dispatch.py) unless SWFS_EC_DISPATCH=0, so
+volumes encoding or rebuilding concurrently through one coder share
+stacked launches. Shard bytes are independent of batch size and of
+stacking (parity is a per-byte-column GF matmul), so output files are
 bit-identical to the reference's 256KB batching.
 
-Not carried over yet: the dispatch scheduler (one direct coder call per
-slab here), NUMA pinning, shard sinks and pacing (``sinks=``, ``pace=``),
-and the decode-back path (write_dat_file and friends).
+Not carried over yet: NUMA pinning of the pipeline threads, shard sinks
+and pacing (``sinks=``, ``pace=``), and the decode-back path (write_dat_file and friends).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..ops import dispatch
 from . import needle_map, types
 from .ec_locate import Geometry
 
@@ -39,7 +42,8 @@ DEFAULT_PIPELINE_DEPTH = 3
 
 def to_host(x) -> np.ndarray:
     """Coder output -> numpy uint8 on the host (a CUDA tensor is copied
-    back, which waits for the kernel that produced it)."""
+    back, which waits for the kernel that produced it; an encode
+    EcFuture resolves first)."""
     if hasattr(x, "detach"):  # a torch tensor
         return x.detach().cpu().numpy()
     return np.asarray(x, dtype=np.uint8)
@@ -53,9 +57,10 @@ class EncodeStats:
     batches: int = 0
     wall_s: float = 0.0
     read_s: float = 0.0  # reader thread: file reads + zero fill
-    dispatch_s: float = 0.0  # reader thread: the encode call (host-to-device
-    #                          copy and launch on a CUDA coder)
+    dispatch_s: float = 0.0  # reader thread: the encode submit (the slab
+    #                          copy into the scheduler, or the direct call)
     device_wait_s: float = 0.0  # coordinator: blocked on parity results
+    #                             (scheduler window, copies, kernel)
     write_s: float = 0.0  # SUM across all shard-writer threads
     started: float = field(default_factory=time.perf_counter)
     ended: float = 0.0
@@ -220,14 +225,17 @@ def generate_ec_files(
 
     Pipeline, `pipeline_depth` slabs deep, with per-shard writer fan-out:
 
-      reader thread:    read slab -> launch encode ─┐ bounded queue
+      reader thread:    read slab -> submit encode ─┐ bounded queue
       coordinator:      route data rows to writers -> wait for parity ┘
       shard writers:    one stream per output file
 
     A recycled buffer pool caps host memory at ~(depth+2) slabs; a slab's
     buffer is recycled only after every data-shard writer flushed its row
-    (countdown). The encode call copies the slab to the device before it
-    returns, so the buffer is never read by the card after recycling.
+    (countdown). The scheduler snapshots each slab when it is submitted
+    (and a direct encode call copies it to the device before it returns),
+    so the card never reads a recycled buffer. Volumes encoding
+    concurrently through one coder each run their own pipeline; their
+    slabs meet in the scheduler's encode lane and share launches.
     """
     k, m = geo.data_shards, geo.parity_shards
     dat_path = base_file_name + ".dat"
@@ -244,6 +252,12 @@ def generate_ec_files(
         free_q.put(np.empty((k, max_batch), dtype=np.uint8))
     work_q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
+
+    # slabs of this pipeline and of every other volume encoding through
+    # the same coder share stacked launches; the futures answer to_host
+    # like a direct call's tensor, and shard bytes stay identical
+    sched = dispatch.maybe_scheduler(coder)
+    encode = coder.encode_parity if sched is None else sched.encode_parity
 
     def reader() -> None:
         try:
@@ -270,7 +284,7 @@ def generate_ec_files(
                                              data[i])
                         t1 = time.perf_counter()
                         stats.read_s += t1 - t0
-                        parity_fut = coder.encode_parity(data)
+                        parity_fut = encode(data)
                         stats.dispatch_s += time.perf_counter() - t1
                         work_q.put((buf, data, parity_fut, batch))
                     processed += block_size * k
@@ -294,7 +308,7 @@ def generate_ec_files(
             for i in range(k):
                 writers.put(i, data[i], nbytes, release)
             t1 = time.perf_counter()
-            parity = to_host(parity_fut)  # waits for the device
+            parity = to_host(parity_fut)  # waits for the scheduler + device
             stats.device_wait_s += time.perf_counter() - t1
             for j in range(m):
                 # parity rows are views of one fresh array; numpy refcounts
@@ -422,6 +436,12 @@ def rebuild_ec_files(
         stats.setdefault("survivor_bytes_read", 0)
     reads_tuple = tuple(reads)
     want_tuple = tuple(missing)
+    # share stacked reconstruct launches with any concurrent rebuild of
+    # the same survivor set (futures resolve in the coordinator, so the
+    # reader keeps working ahead)
+    sched = dispatch.maybe_scheduler(coder)
+    recon = coder.reconstruct_stacked if sched is None else \
+        sched.reconstruct_stacked
 
     def reader() -> None:
         try:
@@ -443,8 +463,10 @@ def rebuild_ec_files(
                         )
                 if not n:
                     break
-                work_q.put(coder.reconstruct_stacked(
-                    reads_tuple, stacked[:, :n], want=want_tuple))
+                # fresh buffer each loop: a queued slab may reference it
+                # without a defensive copy
+                work_q.put(recon(reads_tuple, stacked[:, :n],
+                                 want=want_tuple))
                 offset += n
             work_q.put(None)
         except BaseException as e:
@@ -461,6 +483,8 @@ def rebuild_ec_files(
                 break
             if isinstance(item, BaseException):
                 raise item
+            if isinstance(item, dispatch.EcFuture):
+                item = item.result()
             mids, rows = item
             rows = to_host(rows)  # waits for the device
             if stats is not None:

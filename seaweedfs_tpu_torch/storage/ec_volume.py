@@ -4,8 +4,9 @@ needle reads across shard files (with degraded-mode reconstruction).
 Counterpart of seaweedfs_tpu/storage/ec_volume.py (SeaweedFS's
 ec_volume.go SearchNeedleFromSortedIndex, ec_volume_delete.go
 DeleteNeedleFromEcx, store_ec.go ReadEcShardNeedle).
-A degraded read calls the coder's reconstruct_stacked directly; shard
-files are read through a small mmap reader.
+A degraded read reconstructs through ops/dispatch.reconstruct_now, so
+concurrent degraded reads sharing a survivor set ride one stacked
+launch; shard files are read through a small mmap reader.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 
 import numpy as np
 
+from ..ops import dispatch
 from . import types
 from .ec_files import check_ecx_stride, to_host
 from .ec_locate import Geometry, locate_data
@@ -267,13 +269,17 @@ class EcVolume:
                     raise IOError(
                         f"cannot reconstruct shard {shard_id}: only "
                         f"{len(pres)} shards available")
-            # RS keeps want=None (the fused matrix solves every missing
-            # data row at once); non-RS solves exactly this shard — the
-            # survivor set may not span the full complement
+            # concurrent degraded reads sharing this survivor set ride ONE
+            # stacked reconstruct launch (micro-batched). RS keeps
+            # want=None so readers of DIFFERENT lost shards share the lane
+            # too (the fused matrix solves every missing data row at
+            # once); non-RS solves exactly this shard: the survivor set
+            # may not span the full complement
             want = None if geom.is_rs else (shard_id,)
             try:
-                missing, out = self.coder.reconstruct_stacked(
-                    tuple(pres), np.stack(rows), data_only=True, want=want)
+                missing, out = dispatch.reconstruct_now(
+                    self.coder, pres, np.stack(rows), data_only=True,
+                    want=want)
             except (UnsolvableError, ValueError) as e:
                 if attempt == "planned":
                     continue
