@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 128]
                           [--sched-volume-mb 512] [--sched-volumes 8]
+                          [--baseline DIR]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and nvidia-smi; exits non-zero
 and prints no result without them. Phases, each printing its own line:
@@ -22,8 +23,17 @@ and prints no result without them. Phases, each printing its own line:
                      row stride not a multiple of 16, as the scheduler
                      packs them), a row-strided input, the refusal of a
                      transposed one,
-                     and the golden RS(10,4) shard hashes; then CUDA-event
-                     times of each kernel and plain version at [10, 1 MiB]
+                     and the golden RS(10,4) shard hashes. Then the layouts
+                     K1 and K3 realign: column slices at each row offset
+                     0-15 of a buffer with row stride 8221, slices whose
+                     span ends at the buffer's last byte, widths 1-47, and
+                     K1 at every R in 1-8 and 14. Then CUDA-event times of
+                     each kernel and plain version at the shapes the main
+                     path launches (TIMED_SHAPES), each beside its bytes
+                     bound, and an empty kernel's time at the degraded-read
+                     shape (its floor); with --baseline, another
+                     checkout's K1 and K3 timed in the same turns. Every
+                     library must build without register spills
   4. pipeline        a seeded 1 GiB volume (.dat + .idx) through the port's
                      write_ec_files / write_sorted_file_from_idx with
                      new_coder() on cuda (kernel K1, the default): shard
@@ -42,7 +52,8 @@ and prints no result without them. Phases, each printing its own line:
                      some batch must have stacked more than one slab
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
-read just after; a kernel that path never launched fails the run. The
+read just after; a kernel that path never launched fails the run. K1's
+launches are also split by R (1: degraded read, 3: rebuild, 4: encode). The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -54,6 +65,7 @@ import hashlib
 import json
 import mmap
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -100,6 +112,18 @@ MIB = 1 << 20
 STACKED_WIDTH = 6 * MIB + 4093
 REBUILD_LOST = (0, 5, 13)
 DEGRADED_SHARD = 3
+# a degraded read's width: one interval of padded needle records, an
+# 8-byte multiple that is no 16-byte one
+DEGRADED_WIDTH = 24_584
+# (kernel, shape, matrix, B): the shapes the main path launches, timed
+TIMED_SHAPES = (
+    ("gf_xor", "encode [4,10]", "encode", MIB),
+    ("gf_xor", "rebuild [3,10]", "decode", MIB),
+    ("gf_xor", "degraded read [1,10]", "degraded", DEGRADED_WIDTH),
+    ("gf_bits", "encode [4,10]", "encode", MIB),
+    ("gf_sel", "encode [4,10]", "encode", MIB),
+    ("gf_sel", "stacked flush [4,10]", "encode", STACKED_WIDTH),
+)
 MIN_READS = 2000
 MIN_HEALTHY_READS = 500
 
@@ -182,22 +206,22 @@ def _event_ms(fn, flush: torch.Tensor) -> float:
     return start.elapsed_time(end)
 
 
-def _time_pair(kernel, plain, flush: torch.Tensor, runs: int = 40,
-               warmup_s: float = 1.0) -> tuple[list[float], list[float]]:
-    """CUDA-event times of kernel() and plain(), taken in turns (kernel,
-    plain, plain, kernel, ...) after at least `warmup_s` seconds of both
-    running, so clock ramp-up and drift fall on both sides alike."""
+def _time_turns(fns, flush: torch.Tensor, runs: int = 40,
+                warmup_s: float = 1.0) -> list[list[float]]:
+    """CUDA-event times of each of `fns`, taken in turns (forward, then
+    backward, then forward, ...) after at least `warmup_s` seconds of all
+    of them running, so clock ramp-up and drift fall on all alike."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < warmup_s:
-        kernel()
-        plain()
+        for fn in fns:
+            fn()
         torch.cuda.synchronize()
-    k_ms, p_ms = [], []
+    times = [[] for _ in fns]
     for i in range(runs):
-        order = ((kernel, k_ms), (plain, p_ms))
+        order = list(zip(fns, times))
         for fn, out in (order if i % 2 == 0 else order[::-1]):
             out.append(_event_ms(fn, flush))
-    return k_ms, p_ms
+    return times
 
 
 def _quartiles(xs: list[float]) -> str:
@@ -212,17 +236,44 @@ def _sm_clock() -> str:
         timeout=60, check=True).stdout.strip()
 
 
-def check_kernels(dev, card: str) -> dict:
+def _matrices() -> dict[str, np.ndarray]:
+    """K1's and K2's matrices: the RS(10,4) encode, the fused decode of
+    the rebuild ([3, 10], shards REBUILD_LOST lost) and of a degraded read
+    ([1, 10], shard DEGRADED_SHARD lost)."""
+    def fused(lost):
+        present = tuple(i for i in range(14) if i not in lost)
+        return gfmat.fused_reconstruct_matrix(10, 4, present, lost)[0]
+    return {"encode": gf256.parity_matrix(10, 4), "decode": fused(REBUILD_LOST),
+            "degraded": fused((DEGRADED_SHARD,))}
+
+
+def _check_equal(name: str, what: str, op, data) -> int:
+    """Kernel against plain version on `data`, byte for byte; the largest
+    absolute difference (0, or it raises)."""
+    got = _run(name, op, data, plain=False)
+    want = _run(name, op, data.contiguous(), plain=True)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max().item()) \
+        if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {what}: kernel differs from plain "
+                             f"(max {err})")
+    return err
+
+
+def check_kernels(dev) -> dict:
+    """Each kernel against its plain version on the card, byte for byte:
+    the shapes and matrices of PRs 1-2, then the layouts the redesigned
+    K1 and K3 realign. Returns {kernel: max_abs_err}."""
     rng = np.random.default_rng(2024)
-    enc = gf256.parity_matrix(10, 4)                       # [4, 10]
-    present = tuple(i for i in range(14) if i not in REBUILD_LOST)
-    dec, _ = gfmat.fused_reconstruct_matrix(10, 4, present, REBUILD_LOST)
+    mats = _matrices()
     wide = rng.integers(0, 256, size=(8, 40), dtype=np.uint8)
-    matrices = {"encode[4,10]": enc, "decode[3,10]": dec, "wide[8,40]": wide}
+    matrices = {"encode[4,10]": mats["encode"], "decode[3,10]": mats["decode"],
+                "wide[8,40]": wide}
     sel = {f"{n}{list(m.shape)}": m for n, m in sel_matrices().items()}
-    results = {}
+    worst = {}
     for name, spec in KERNELS.items():
-        worst = 0
+        err = 0
         checked = 0
         # K3 (encode lane) and K1 (reconstruct lanes) take stacked flushes
         widths = (MIB, MIB + 4, 4095, 1) + (
@@ -233,28 +284,16 @@ def check_kernels(dev, card: str) -> dict:
             for b in widths:
                 data = torch.from_numpy(
                     rng.integers(0, 256, size=(c, b), dtype=np.uint8)).to(dev)
-                got = _run(name, op, data, plain=False)
-                want = _run(name, op, data, plain=True)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int16) - want.to(torch.int16))
-                          .abs().max().item())
-                worst = max(worst, err)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} {mname} B={b}: kernel "
-                                         f"differs from plain (max {err})")
+                err = max(err, _check_equal(name, f"{mname} B={b}", op, data))
                 checked += 1
             # a column slice of a wider buffer: rows strided, bytes unit-stride
             base = torch.from_numpy(rng.integers(
                 0, 256, size=(c, 8192 + 13), dtype=np.uint8)).to(dev)
-            view = base[:, 5:5 + 8192]
-            got = _run(name, op, view, plain=False)
-            want = _run(name, op, view.contiguous(), plain=True)
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} {mname}: row-strided input "
-                                     f"differs from plain")
+            err = max(err, _check_equal(name, f"{mname} row-strided", op,
+                                        base[:, 5:5 + 8192]))
             checked += 1
         # a transposed (byte-strided) input is refused, not copied
-        op = _operand(spec["form"], enc, dev)
+        op = _operand(spec["form"], mats["encode"], dev)
         bad = torch.zeros((4096, 10), dtype=torch.uint8, device=dev).t()
         try:
             _run(name, op, bad, plain=False)
@@ -270,27 +309,162 @@ def check_kernels(dev, card: str) -> dict:
         hashes = [hashlib.sha256(s.tobytes()).hexdigest() for s in shards]
         if hashes != GOLDEN_SHARD_SHA256:
             raise AssertionError(f"{name}: golden shard hashes differ")
-        # times at the main path's shape: [10, 1 MiB] through the encode matrix
-        data = torch.from_numpy(
-            rng.integers(0, 256, size=(10, MIB), dtype=np.uint8)).to(dev)
-        flush = torch.zeros(1024 * MIB, dtype=torch.uint8, device=dev)
-        k_ms, p_ms = _time_pair(lambda: _run(name, op, data, plain=False),
-                                lambda: _run(name, op, data, plain=True),
-                                flush)
-        ms, plain_ms = statistics.median(k_ms), statistics.median(p_ms)
-        moved = (10 + 4) * MIB
-        bound_ms = moved / memory_rate(card) * 1e3
         log("kernels", f"{name}: {checked} shapes byte-identical to plain, "
-                       f"transposed input refused, golden hashes match; "
-                       f"[10, 1 MiB] encode median {ms:.4f} ms (quartiles "
-                       f"{_quartiles(k_ms)}), plain {plain_ms:.4f} ms "
-                       f"(quartiles {_quartiles(p_ms)}), bytes bound "
-                       f"{bound_ms:.4f} ms = {moved} B at "
-                       f"{memory_rate(card):.3g} B/s; SM clock, max after "
-                       f"timing: {_sm_clock()}; on {card}")
-        results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms)
-    return results
+                       f"transposed input refused, golden hashes match")
+        worst[name] = err
+
+    # the layouts K1 and K3 realign: every row offset, narrow widths, spans
+    # that end at their allocation's last byte; and K1 at every R
+    for name, mats_of in (("gf_xor", {"encode[4,10]": mats["encode"],
+                                      "decode[3,10]": mats["decode"],
+                                      "degraded[1,10]": mats["degraded"]}),
+                          ("gf_sel", sel)):
+        err = worst[name]
+        checked = 0
+        for mname, mat in mats_of.items():
+            op = _operand(KERNELS[name]["form"], mat, dev)
+            c = mat.shape[1]
+            # row stride 8221 (no multiple of 16): at offset o the rows start
+            # at o, o + 8221, ...; the output [R, b] is misaligned too
+            base = torch.from_numpy(rng.integers(
+                0, 256, size=(c, 8221), dtype=np.uint8)).to(dev)
+            for off in range(16):
+                err = max(err, _check_equal(name, f"{mname} offset {off}", op,
+                                            base[:, off:off + 8189]))
+                # the last row's span ends at its allocation's last byte
+                err = max(err, _check_equal(name, f"{mname} offset {off} to "
+                                            f"the end", op, base[:, off:]))
+                checked += 2
+            for b in range(1, 48):
+                data = torch.from_numpy(rng.integers(
+                    0, 256, size=(c, b), dtype=np.uint8)).to(dev)
+                err = max(err, _check_equal(name, f"{mname} B={b}", op, data))
+                checked += 1
+        if name == "gf_xor":
+            for r in (1, 2, 3, 4, 5, 6, 7, 8, 14):
+                mat = rng.integers(0, 256, size=(r, 10), dtype=np.uint8)
+                op = _operand("xor", mat, dev)
+                for b in (64 * 1024 + 3, DEGRADED_WIDTH):
+                    data = torch.from_numpy(rng.integers(
+                        0, 256, size=(10, b), dtype=np.uint8)).to(dev)
+                    err = max(err, _check_equal(name, f"R={r} B={b}", op,
+                                                data))
+                    checked += 1
+        log("kernels", f"{name}: {checked} more layouts byte-identical to "
+                       f"plain (row offsets 0-15 at row stride 8221, spans "
+                       f"ending at the allocation's end, widths 1-47"
+                       f"{', R = 1-8 and 14' if name == 'gf_xor' else ''})")
+        worst[name] = err
+    return worst
+
+
+def baseline_kernels(root: str, workdir: str | None) -> dict:
+    """K1 (gf_xor.cu) and K3 (gf_sel.cu for the RS(10,4) encode matrix) of
+    another checkout at `root`, built with this checkout's nvcc flags and
+    bound by the same C interface: {kernel: fn(operand, data) -> out}, to
+    time another version beside this one in the same run."""
+    import ctypes
+
+    csrc = os.path.join(root, "seaweedfs_tpu_torch", "ops", "csrc")
+    out_dir = tempfile.mkdtemp(prefix="baseline-", dir=workdir)
+    unit = os.path.join(out_dir, "gf_sel_rs_10_4.cu")
+    with open(unit, "w") as f:
+        f.write(_build.specialised_unit("gf_sel.cu", gf256.parity_matrix(10, 4)))
+    jobs = {name: subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+         os.path.join(out_dir, f"{name}.so"), *inputs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, inputs in (("gf_xor", [os.path.join(csrc, "gf_xor.cu")]),
+                             ("gf_sel", ["-I", csrc, unit]))}
+    libs = {}
+    for name, proc in jobs.items():
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"baseline {name} failed to build:\n{text}")
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    libs["gf_xor"].gf_xor_launch.argtypes = [vp, vp, ll, vp, ll, i, i, ll,
+                                             i, vp]
+    libs["gf_sel"].gf_sel_launch.argtypes = [vp, ll, vp, ll, ll, i, vp]
+
+    def launch(name, *args):
+        code = getattr(libs[name], f"{name}_launch")(*args)
+        if code != 0:
+            raise RuntimeError(f"baseline {name} launch failed: {code}")
+
+    def xor(coef, data):
+        out = torch.empty((coef.shape[0], data.shape[1]), dtype=torch.uint8,
+                          device=data.device)
+        launch("gf_xor", coef.data_ptr(), data.data_ptr(), data.stride(0),
+               out.data_ptr(), out.stride(0), coef.shape[0], data.shape[0],
+               data.shape[1], data.device.index,
+               torch.cuda.current_stream(data.device).cuda_stream)
+        return out
+
+    def sel(matrix, data):
+        if not np.array_equal(matrix, gf256.parity_matrix(10, 4)):
+            raise ValueError("the baseline K3 is built for RS(10,4) only")
+        out = torch.empty((4, data.shape[1]), dtype=torch.uint8,
+                          device=data.device)
+        launch("gf_sel", data.data_ptr(), data.stride(0), out.data_ptr(),
+               out.stride(0), data.shape[1], data.device.index,
+               torch.cuda.current_stream(data.device).cuda_stream)
+        return out
+
+    return {"gf_xor": xor, "gf_sel": sel}
+
+
+def time_shapes(dev, card: str, baseline: dict | None = None) -> dict:
+    """CUDA-event times of each kernel and its plain version at the shapes
+    the main path launches (TIMED_SHAPES), with each shape's bytes bound;
+    at the degraded-read shape also an empty kernel's time, its floor; and,
+    given `baseline` (baseline_kernels), the other version's K1 and K3 in
+    the same turns, after a byte-for-byte check against the plain one."""
+    rng = np.random.default_rng(7)
+    mats = _matrices()
+    flush = torch.zeros(1024 * MIB, dtype=torch.uint8, device=dev)
+    rate = memory_rate(card)
+    out = {}
+    for name, label, mname, b in TIMED_SHAPES:
+        mat = mats[mname]
+        op = _operand(KERNELS[name]["form"], mat, dev)
+        r, c = mat.shape
+        data = torch.from_numpy(
+            rng.integers(0, 256, size=(c, b), dtype=np.uint8)).to(dev)
+        fns = {"kernel": lambda: _run(name, op, data, plain=False),
+               "plain": lambda: _run(name, op, data, plain=True)}
+        if mname == "degraded":
+            fns["floor"] = lambda: rs_xor.launch_empty(dev)
+        if baseline and name in baseline:
+            other = baseline[name]
+            if not torch.equal(other(op, data), fns["plain"]()):
+                raise AssertionError(f"baseline {name} {label} differs from "
+                                     f"plain")
+            fns["baseline"] = lambda: other(op, data)
+        times = dict(zip(fns, _time_turns(list(fns.values()), flush)))
+        moved = (c + r) * b
+        row = dict(kernel=name, shape=f"{label} x {b} B",
+                   ms=statistics.median(times["kernel"]),
+                   plain_ms=statistics.median(times["plain"]),
+                   bound_ms=moved / rate * 1e3,
+                   floor_ms=statistics.median(times["floor"])
+                   if "floor" in times else None,
+                   baseline_ms=statistics.median(times["baseline"])
+                   if "baseline" in times else None)
+        floor = "" if row["floor_ms"] is None else (
+            f", empty kernel {row['floor_ms']:.6f} ms (quartiles "
+            f"{_quartiles(times['floor'])})")
+        if row["baseline_ms"] is not None:
+            floor += (f", baseline {row['baseline_ms']:.6f} ms (quartiles "
+                      f"{_quartiles(times['baseline'])})")
+        log("kernels", f"{name} {row['shape']}: median {row['ms']:.6f} ms "
+                       f"(quartiles {_quartiles(times['kernel'])}), "
+                       f"{row['ms'] / row['bound_ms']:.2f}x the bytes bound "
+                       f"{row['bound_ms']:.6f} ms = {moved} B at {rate:.3g} "
+                       f"B/s; plain {row['plain_ms']:.6f} ms{floor}; SM "
+                       f"clock, max: {_sm_clock()}; on {card}")
+        out[(name, label)] = row
+    return out
 
 
 # -- pipeline -----------------------------------------------------------------
@@ -439,7 +613,8 @@ def pipeline(phase: str, kernel: str, volume_mb: int, seed: int, degraded: bool,
                   for k, spec in KERNELS.items()}
         if counts[kernel] <= 0:
             raise AssertionError(f"{phase}: {kernel} was never launched")
-        log(phase, f"launches: {counts}")
+        log(phase, f"launches: {counts}; gf_xor by R: "
+                   f"{dict(sorted(rs_xor.KERNEL.launches_by.items()))}")
         return dict(launches=counts[kernel], **rates)
     finally:
         shutil.rmtree(vdir)
@@ -587,7 +762,9 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
                        f"{n_sl / max(n_b, 1):.3f}, mean queue wait "
                        f"{wait / max(n_sl, 1) * 1e3:.3f} ms")
         arena = ec_stats.ec_dispatch_stats()["arena"]
-        log(phase, f"launches: {counts}; stack arena {arena}")
+        log(phase, f"launches: {counts}; gf_xor by R: "
+                   f"{dict(sorted(rs_xor.KERNEL.launches_by.items()))}; "
+                   f"stack arena {arena}")
         if counts["gf_sel"] <= 0:
             raise AssertionError(f"{phase}: gf_sel was never launched")
         if counts["gf_sel"] != enc_batches:
@@ -627,6 +804,9 @@ def main(argv=None) -> int:
                          "(default 8)")
     ap.add_argument("--workdir", default=None,
                     help="where volumes are written (default: TMPDIR)")
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="another checkout whose K1 and K3 are built and "
+                         "timed beside this one's at every timed shape")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -655,12 +835,33 @@ def main(argv=None) -> int:
               f"{rs_sel.TEMPLATE} for {name}{list(m.shape)}"
               for name, m in sel.items()}
     for key, b in built.items():
-        report = [line.strip() for line in _build.build_log(b.path)
-                  .splitlines() if "registers" in line or "spill" in line]
+        text = _build.build_log(b.path)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", text)]
+        # K1's instances, C group/R pass: registers (the main path's C = 10)
+        k1 = {f"{g}/{r}": int(n) for g, r, n in re.findall(
+            r"gf_xor_kernelILi(\d+)ELi(\d+)E.*?Used (\d+) registers", text,
+            flags=re.S) if g == "10"}
         log("build", f"{labels.get(key, key)}: {b.seconds:.1f} s; "
-                     f"{'; '.join(report)}")
+                     f"{len(regs)} kernels, registers {min(regs)}-"
+                     f"{max(regs)}, spill bytes {sum(spills)}"
+                     f"{f'; registers by C/R {k1}' if k1 else ''}")
+        if sum(spills):
+            spilled = [entry.split("'")[1] for entry in
+                       text.split("Compiling entry function")[1:]
+                       if re.search(r"[1-9]\d* bytes spill", entry)]
+            raise AssertionError(f"{labels.get(key, key)} spills registers "
+                                 f"in {spilled}")
 
-    kernel_numbers = check_kernels(dev, card)
+    max_err = check_kernels(dev)
+    baseline = None
+    if args.baseline:
+        t0 = time.perf_counter()
+        baseline = baseline_kernels(args.baseline, args.workdir)
+        log("build", f"baseline K1 and K3 from {args.baseline} in "
+                     f"{time.perf_counter() - t0:.1f} s")
+    timed = time_shapes(dev, card, baseline)
 
     k1 = pipeline("pipeline", "gf_xor", args.volume_mb, seed=1,
                   degraded=True, workdir=args.workdir, card=card)
@@ -672,14 +873,12 @@ def main(argv=None) -> int:
     rows = []
     for name, path in (("gf_xor", k1), ("gf_bits", k2), ("gf_sel", k3)):
         spec = KERNELS[name]
+        at = timed[(name, "encode [4,10]")]  # the [10, 1 MiB] encode
         rows.append(dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"], launches=path["launches"],
-            max_abs_err=kernel_numbers[name]["max_abs_err"],
-            ms=kernel_numbers[name]["ms"],
-            plain_ms=kernel_numbers[name]["plain_ms"],
-            bound_ms=kernel_numbers[name]["bound_ms"], bound_by="bytes",
-            library_ms=None))
+            max_abs_err=max_err[name], ms=at["ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by="bytes", library_ms=None))
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -13,8 +13,8 @@ the kernel (``specialised_unit``). That unit is kept beside its library.
 
 Libraries land in ops/_build/ (listed in .gitignore), named by a hash of
 what they are compiled from (the source, or the template and the
-generated unit) and the flags, so an edited source rebuilds and an
-unchanged one loads as it is; a second process finds the library and
+generated unit, and every header in csrc/) and the flags, so an edited
+source or header rebuilds and an unchanged one loads as it is; a second process finds the library and
 loads it without building. ``build()`` starts one nvcc per library, all
 at once, and waits for them together. Each library is moved into place
 with an atomic rename, so two processes building the same one at once
@@ -61,10 +61,17 @@ def nvcc() -> str:
         "toolkit (put nvcc on PATH)")
 
 
+def _headers() -> bytes:
+    """Every header in csrc/, names and bytes: any source may include one,
+    so each library's name covers them all."""
+    return b"".join(p.name.encode() + b"\0" + p.read_bytes()
+                    for p in sorted(CSRC.glob("*.cuh")))
+
+
 def library_path(source: str) -> Path:
     """Where `source`'s library lives once built (content-addressed)."""
     src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src + _headers() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -90,12 +97,12 @@ def specialised_unit(template: str, matrix: np.ndarray) -> str:
 
 def specialised_path(template: str, matrix: np.ndarray) -> Path:
     """Where `template` specialised on `matrix` lives once built: named by
-    a hash of the template, the generated unit (the matrix bytes) and the
-    flags."""
+    a hash of the template, the headers, the generated unit (the matrix
+    bytes) and the flags."""
     m = np.asarray(matrix, dtype=np.uint8)
     unit = specialised_unit(template, m)
-    digest = hashlib.sha256((CSRC / template).read_bytes() + unit.encode()
-                            + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / template).read_bytes() + _headers()
+                            + unit.encode() + " ".join(NVCC_FLAGS).encode())
     r, c = m.shape
     return BUILD_DIR / (f"{Path(template).stem}-{r}x{c}-"
                         f"{digest.hexdigest()[:16]}.so")
@@ -140,20 +147,28 @@ def build(sources=SOURCES, specialised=()) -> dict[str, Built]:
                 tmp_unit.write_text(unit_text)
                 os.replace(tmp_unit, unit)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            proc = subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp), *inputs],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((name, path, tmp, proc, time.perf_counter()))
+            log = path.with_name(path.name + ".log")
+            with open(log, "w") as log_file:
+                proc = subprocess.Popen(
+                    [compiler, *NVCC_FLAGS, "-o", str(tmp), *inputs],
+                    stdout=log_file, stderr=subprocess.STDOUT)
+            jobs.append((name, path, tmp, log, proc, time.perf_counter()))
         failed = []
-        for name, path, tmp, proc, t0 in jobs:
-            log, _ = proc.communicate()
-            seconds = time.perf_counter() - t0
-            path.with_name(path.name + ".log").write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-                continue
-            os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
-            out[name] = Built(path, seconds)
+        while jobs:  # each build's own seconds, whatever order they end in
+            for job in list(jobs):
+                name, path, tmp, log, proc, t0 = job
+                try:
+                    proc.wait(timeout=0.05)
+                except subprocess.TimeoutExpired:
+                    continue
+                jobs.remove(job)
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                                  f"{log.read_text()}")
+                    continue
+                os.replace(tmp, path)  # atomic: a loader sees all or none
+                out[name] = Built(path, seconds)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
         return out
@@ -166,7 +181,8 @@ def build_log(library: Path) -> str:
 
 
 class _Launcher:
-    """A plain integer count of the launches a wrapper made, and the
+    """A plain integer count of the launches a wrapper made (and, where the
+    wrapper names one, a count per shape key beside it), and the
     launch-and-check step shared by the port's libraries: every library
     exports <prefix>_launch, returning cudaGetLastError(), and
     <prefix>_error_string."""
@@ -174,14 +190,18 @@ class _Launcher:
     def __init__(self, prefix: str):
         self.prefix = prefix
         self.launches = 0
+        self.launches_by: dict = {}
         self._count_lock = threading.Lock()
 
-    def _launch(self, lib: ctypes.CDLL, *args) -> None:
-        """Call <prefix>_launch; raise on a refused launch, else count it."""
+    def _launch(self, lib: ctypes.CDLL, *args, key=None) -> None:
+        """Call <prefix>_launch; raise on a refused launch, else count it
+        (under `key` too, when one is given)."""
         code = getattr(lib, f"{self.prefix}_launch")(*args)
         self._raise_for(lib, code, "launch")
         with self._count_lock:
             self.launches += 1
+            if key is not None:
+                self.launches_by[key] = self.launches_by.get(key, 0) + 1
 
     def _raise_for(self, lib: ctypes.CDLL, code: int, what: str) -> None:
         if code != 0:
@@ -193,6 +213,7 @@ class _Launcher:
     def reset(self) -> None:
         with self._count_lock:
             self.launches = 0
+            self.launches_by = {}
 
 
 class Kernel(_Launcher):
@@ -245,9 +266,9 @@ class Kernel(_Launcher):
                 f"of shared memory, more than the {limit} a block may use on "
                 f"this device")
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, key=None) -> None:
         """Call <prefix>_launch; raise on a refused launch, else count it."""
-        self._launch(self.lib, *args)
+        self._launch(self.lib, *args, key=key)
 
     def raise_for(self, code: int, what: str) -> None:
         self._raise_for(self.lib, code, what)

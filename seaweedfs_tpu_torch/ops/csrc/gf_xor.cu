@@ -2,146 +2,185 @@
 //
 //   out[R, B] = M[R, C] (x) in[C, B]   over GF(2^8)/0x11D, byte columns.
 //
-// Replaces the TPU kernel seaweedfs_tpu/ops/rs_xor.py `_xor_kernel`
-// (launched by `gf_matmul_xor_pallas`, wrapper `apply_matrix_xor_pallas`).
+// Replaces the TPU kernel seaweedfs_tpu/ops/rs_xor.py `_xor_kernel` (:115;
+// launched by `gf_matmul_xor_pallas`, wrapper `apply_matrix_xor_pallas`).
 //
 // What it computes. For four bytes packed little-endian in a word w,
 //   c * x = XOR_j bit_j(x) * gfmul(c, 2^j)              (GF linearity)
-//   mask_j(w) = (w >> j) & 0x01010101                   (bit j of each byte)
-//   out_r = XOR_{c,j} mask_j(in_c) * coef[r, 8c+j],     coef = gfmul(M[r,c], 2^j)
-// Each product mask * coef has no carries (0x01010101 * 255 = 0xFFFFFFFF),
-// so it equals (mask * 0xFF) & (coef * 0x01010101). The kernel stages the
-// coefficients replicated into all four bytes of a word and combines them
-// with AND, which the compiler fuses with the XOR into one LOP3 per output
-// row and mask. All arithmetic is uint32_t: the Pallas kernel leans on
-// int32 wraparound, which is undefined for signed integers in C++, and its
-// right shifts must be logical here.
+//   mask_j(w) = sign_bytes(w << (7 - j))                (0xFF where bit j set)
+//   out_r = XOR_{c,j} mask_j(in_c) & (coef[r, 8c+j] * 0x01010101)
+// with coef = gfmul(M[r,c], 2^j) and sign_bytes one prmt (gf_chunks.cuh):
+// the shift moves bit j of each byte to its top bit, and prmt replicates
+// each byte's top bit over the byte. That is two instructions a mask (one
+// for j = 7), and one LOP3 (AND-XOR) per output row and mask. All
+// arithmetic is uint32_t: the Pallas kernel leans on int32 wraparound,
+// which is undefined for signed integers in C++.
 //
-// What bounds it. The function moves (C + R) * B bytes: 14 MiB for RS(10,4)
-// at B = 1 MiB, 4.4 us at the H100 SXM's 3.35 TB/s. The kernel issues about
-// 8 * C * (3 + R) integer instructions per 4-byte word column, so at that
-// shape the integer issue rate, not memory, sets its time (PERF.md holds
-// the measured numbers).
+// What bounds it. The function moves (C + R) * B bytes: 14,680,064 B for
+// RS(10,4) encode at B = 1 MiB, 0.004382 ms at the H100 SXM's 3.35 TB/s. Per
+// word of each input row a thread issues 15 mask instructions and 8 R
+// AND-XORs on the SMs' integer logic pipe (64 lanes a clock): for [4, 10]
+// x 1 MiB, 470 a word, about 7.4 us on 132 SMs at 1.98 GHz, above the bytes
+// bound. So integer issue sets the time at the encode and rebuild shapes,
+// and launch latency at a degraded read's few KB. Measured (chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700.00 W): [4, 10] x 1 MiB 0.018304 ms (4.2x the
+// bound), [3, 10] x 1 MiB 0.016352 ms, [1, 10] x 24,584 B 0.011200 ms beside
+// an empty kernel's 0.005072 ms. Designs measured and dropped: a persistent
+// grid prefetching the next chunk (registers doubled, twice as slow), IMAD
+// products instead of AND masks (20% slower), and Horner's rule over the
+// matrix bits (fewer instructions, but one serial chain per row: 31%
+// slower at [4, 10]; K3, whose selection is compile-time, uses it).
 //
-// Design. One thread per 16-byte column chunk (four words), across all C
-// input rows. The [R, 8C] coefficient tile sits in shared memory — not in
-// __constant__, because concurrent calls carry different decode matrices —
-// padded with zero rows to a multiple of RCH. R outputs accumulate in
-// registers in passes of RCH rows; a pass past the first re-reads the input
-// chunk (from L2). A row whose chunk is 16-byte aligned and whole takes one
-// 16-byte load and store; the ragged tail (B % 16 bytes) and rows that start
-// off a 16-byte boundary take byte loads and stores masked by B, so the
-// wrapper never pads.
+// Design.
+//   * All C input rows of a chunk in flight: the kernel is a template on a
+//     group of CG input rows (CG = C for C in {6, 10, 12, 14}; groups of 8
+//     for any other C), and a thread issues the group's CG 16-byte loads
+//     before the first use. (Issuing them before the block stages its
+//     coefficients, with the chunks held across the group loop, took 128
+//     registers at [4, 10] instead of 110 and ran 59% slower.)
+//   * 16-byte accesses at any row offset (gf_chunks.cuh): aligned blocks,
+//     realigned in registers by warp shuffles and funnel shifts; byte
+//     accesses only at a span's two ends. The wrapper never pads or
+//     copies: any row stride is taken as it is.
+//   * Exact R: the kernel is a template on RB = 1..8 output rows a pass;
+//     R <= 8 is one pass of exactly R rows, a larger R is passes of 8 (one
+//     per grid row) and one launch for the R % 8 rest. No accumulator row
+//     carries zero coefficients: a degraded read (R = 1) does one row.
+//   * The [RB, 8C] coefficients of a pass sit in shared memory, replicated
+//     into all four bytes of a word, as [C][RB][8] so that one input row's
+//     eight coefficients for an output row are two 16-byte loads (all
+//     lanes read the same address: a broadcast). Not __constant__:
+//     concurrent calls carry different decode matrices.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <utility>
+
+#include "gf_chunks.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 16;  // bytes per thread per row
+constexpr int kGroup = 8;  // input rows in flight for a C with no template
+constexpr int kMaxPass = 8;
 
-__device__ __forceinline__ void load_chunk(const uint8_t* p, long long avail,
-                                           uint32_t w[4]) {
-  if (avail >= kChunk && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-    return;
-  }
-  w[0] = w[1] = w[2] = w[3] = 0u;
-  for (int t = 0; t < kChunk; ++t) {
-    if (t < avail) w[t >> 2] |= static_cast<uint32_t>(p[t]) << (8 * (t & 3));
-  }
-}
-
-__device__ __forceinline__ void store_chunk(uint8_t* p, long long avail,
-                                            const uint32_t w[4]) {
-  if (avail >= kChunk && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    return;
-  }
-  for (int t = 0; t < kChunk; ++t) {
-    if (t < avail) p[t] = static_cast<uint8_t>(w[t >> 2] >> (8 * (t & 3)));
-  }
-}
-
-template <int RCH>
-__global__ void __launch_bounds__(kThreads)
+template <int CG, int RB>
+__global__ void __launch_bounds__(gfk::kThreads)
 gf_xor_kernel(const uint32_t* __restrict__ coef,  // [R, 8C], values 0..255
-              const uint8_t* __restrict__ in, long long ld_in,
-              uint8_t* __restrict__ out, long long ld_out, int R, int C,
-              long long B) {
-  extern __shared__ uint32_t s_coef[];  // [R padded to RCH, 8C], replicated
-  const int row_words = 8 * C;
-  const int r_pad = (R + RCH - 1) / RCH * RCH;
-  for (int i = threadIdx.x; i < r_pad * row_words; i += blockDim.x) {
-    s_coef[i] = i < R * row_words ? coef[i] * 0x01010101u : 0u;
+              int r_base, const uint8_t* __restrict__ in, long long ld_in,
+              uint8_t* __restrict__ out, long long ld_out, int C, long long B,
+              bool halo) {
+  extern __shared__ uint4 s_coef[];  // [C][RB][2]: 8 replicated words
+  const int r0 = r_base + static_cast<int>(blockIdx.y) * RB;
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_coef);
+  for (int i = threadIdx.x; i < C * RB * 8; i += blockDim.x) {
+    const int j = i & 7;
+    const int p = (i >> 3) % RB;
+    const int c = (i >> 3) / RB;
+    s_words[i] = coef[static_cast<long long>(r0 + p) * 8 * C + 8 * c + j] *
+                 0x01010101u;
   }
   __syncthreads();
 
-  const long long b0 =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kChunk;
-  if (b0 >= B) return;
-  const long long avail = B - b0;
+  const gfk::ChunkMap m = gfk::chunk_map(halo);
+  if (m.first >= gfk::owned_chunks<4>(B, halo)) return;  // whole warps
 
-  for (int r0 = 0; r0 < R; r0 += RCH) {
-    uint32_t acc[RCH][4];
+  uint32_t acc[RB][4];
 #pragma unroll
-    for (int p = 0; p < RCH; ++p) {
+  for (int p = 0; p < RB; ++p) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[p][q] = 0u;
-    }
-    const uint32_t* k_pass = s_coef + static_cast<size_t>(r0) * row_words;
-    for (int c = 0; c < C; ++c) {
-      uint32_t w[4];
-      load_chunk(in + c * ld_in + b0, avail, w);
-      const uint32_t* k_c = k_pass + 8 * c;
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0u;
+  }
+  for (int c0 = 0; c0 < C; c0 += CG) {
+    // every row's load before the first use
+    uint32_t x[CG][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bm[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bm[q] = ((w[q] >> j) & 0x01010101u) * 0xFFu;
-#pragma unroll
-        for (int p = 0; p < RCH; ++p) {
-          const uint32_t kk = k_c[p * row_words + j];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[p][q] ^= bm[q] & kk;
-        }
+    for (int i = 0; i < CG; ++i) {
+      if (c0 + i < C) {
+        const uint8_t* row = in + (c0 + i) * ld_in;
+        gfk::load_block<4>(row, m.t * 16 - gfk::row_offset<4>(row), B, x[i]);
       }
     }
 #pragma unroll
-    for (int p = 0; p < RCH; ++p) {
-      if (r0 + p < R) store_chunk(out + (r0 + p) * ld_out + b0, avail, acc[p]);
+    for (int i = 0; i < CG; ++i) {
+      if (c0 + i < C) {  // uniform
+        uint32_t w[4];
+        gfk::chunk_in<4>(x[i], gfk::row_offset<4>(in + (c0 + i) * ld_in), w);
+        uint32_t bm[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bm[j][q] = gfk::sign_bytes(w[q] << (7 - j));
+        }
+        const uint4* k_c = s_coef + (c0 + i) * RB * 2;
+#pragma unroll
+        for (int p = 0; p < RB; ++p) {
+          const uint4 lo = k_c[2 * p];
+          const uint4 hi = k_c[2 * p + 1];
+          const uint32_t kk[8] = {lo.x, lo.y, lo.z, lo.w,
+                                  hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[p][q] ^= bm[j][q] & kk[j];
+          }
+        }
+      }
     }
+  }
+#pragma unroll
+  for (int p = 0; p < RB; ++p) {
+    gfk::chunk_out<4>(out + (r0 + p) * ld_out, m, B, acc[p]);
+  }
+}
+
+using KernelFn = void (*)(const uint32_t*, int, const uint8_t*, long long,
+                          uint8_t*, long long, int, long long, bool);
+
+template <int CG, int... rbs>
+KernelFn pick_rb(int rb, std::integer_sequence<int, rbs...>) {
+  KernelFn fn = nullptr;
+  ((rb == rbs + 1 ? (fn = gf_xor_kernel<CG, rbs + 1>, 0) : 0), ...);
+  return fn;
+}
+
+// The kernel for C input rows and RB output rows a pass.
+KernelFn pick(int C, int rb) {
+  const auto rbs = std::make_integer_sequence<int, kMaxPass>{};
+  switch (C) {
+    case 6: return pick_rb<6>(rb, rbs);
+    case 10: return pick_rb<10>(rb, rbs);
+    case 12: return pick_rb<12>(rb, rbs);
+    case 14: return pick_rb<14>(rb, rbs);
+    default: return pick_rb<kGroup>(rb, rbs);
   }
 }
 
 size_t smem_bytes(int R, int C) {
-  const int rch = R <= 4 ? 4 : 8;
-  const size_t r_pad = static_cast<size_t>((R + rch - 1) / rch * rch);
-  return r_pad * 8 * static_cast<size_t>(C) * sizeof(uint32_t);
+  const int rb = R < kMaxPass ? R : kMaxPass;
+  return static_cast<size_t>(C) * rb * 8 * sizeof(uint32_t);
 }
 
-template <int RCH>
-cudaError_t launch(const void* coef, const void* in, long long ld_in, void* out,
-                   long long ld_out, int R, int C, long long B, size_t smem,
-                   unsigned blocks, cudaStream_t stream) {
+cudaError_t launch_pass(int rb, unsigned passes, int r_base, const void* coef,
+                        const void* in, long long ld_in, void* out,
+                        long long ld_out, int C, long long B, bool halo,
+                        unsigned blocks, cudaStream_t stream) {
+  const KernelFn fn = pick(C, rb);
+  const size_t smem = smem_bytes(rb, C);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gf_xor_kernel<RCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  gf_xor_kernel<RCH><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(coef), static_cast<const uint8_t*>(in), ld_in,
-      static_cast<uint8_t*>(out), ld_out, R, C, B);
+  fn<<<dim3(blocks, passes), gfk::kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(coef), r_base,
+      static_cast<const uint8_t*>(in), ld_in, static_cast<uint8_t*>(out),
+      ld_out, C, B, halo);
   return cudaGetLastError();
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -160,7 +199,8 @@ int gf_xor_smem_limit(int device, int* limit) {
 
 // out[R, B] (row stride ld_out bytes) = M (x) in[C, B] (row stride ld_in),
 // coefficients coef[R, 8C] int32 from xor_coefficients(M). Launches on
-// `stream` and returns cudaGetLastError() (0 on success); does not sync.
+// `stream` (two kernels when R > 8 is no multiple of 8) and returns
+// cudaGetLastError() (0 on success); does not sync.
 int gf_xor_launch(const void* coef, const void* in, long long ld_in, void* out,
                   long long ld_out, int R, int C, long long B, int device,
                   void* stream) {
@@ -173,18 +213,36 @@ int gf_xor_launch(const void* coef, const void* in, long long ld_in, void* out,
   e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = smem_bytes(R, C);
-  if (smem > static_cast<size_t>(limit)) {
+  if (smem_bytes(R, C) > static_cast<size_t>(limit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long chunks = (B + kChunk - 1) / kChunk;
-  const long long blocks = (chunks + kThreads - 1) / kThreads;
+  const bool halo = gfk::needs_halo<4>(in, ld_in, C, out, ld_out, R);
+  const long long blocks = gfk::blocks_for<4>(B, halo);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned nb = static_cast<unsigned>(blocks);
-  e = R <= 4 ? launch<4>(coef, in, ld_in, out, ld_out, R, C, B, smem, nb, s)
-             : launch<8>(coef, in, ld_in, out, ld_out, R, C, B, smem, nb, s);
+  const int full = R / kMaxPass;
+  const int rest = R % kMaxPass;
+  if (R <= kMaxPass) {
+    e = launch_pass(R, 1, 0, coef, in, ld_in, out, ld_out, C, B, halo, nb, s);
+  } else {
+    e = launch_pass(kMaxPass, static_cast<unsigned>(full), 0, coef, in, ld_in,
+                    out, ld_out, C, B, halo, nb, s);
+    if (e == cudaSuccess && rest > 0) {
+      e = launch_pass(rest, 1, full * kMaxPass, coef, in, ld_in, out, ld_out, C,
+                      B, halo, nb, s);
+    }
+  }
   return static_cast<int>(e);
+}
+
+// An empty kernel of one block, launched the same way: the floor under
+// K1's time at small widths.
+int gf_xor_empty_launch(int device, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  empty_kernel<<<1, gfk::kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* gf_xor_error_string(int code) {

@@ -2,15 +2,22 @@
 
 For four bytes packed little-endian in a word ``y``:
 
-    xtime(y) = ((y << 1) & 0xFEFEFEFE) ^ (((y >> 7) & 0x01010101) * 0x1D)
+    xtime(y) = ((y << 1) & 0xFEFEFEFE) ^ (sign_bytes(y) & 0x1D1D1D1D)
 
-doubles each byte in GF(2^8), and ``M[r, c] * x`` is the XOR of ``2^j * x``
-over the set bits j of ``M[r, c]``. So each input row runs a chain of seven
-doublings, and each output row is a fixed selection of chain links: for
-a matrix known ahead of time the selection costs nothing per element.
-Counterpart of seaweedfs_tpu/ops/rs_xor.py (``gf_matmul_sel``, and the
-Pallas kernel of ``_sel_kernel_factory`` behind
-``apply_matrix_sel_pallas``).
+doubles each byte in GF(2^8) (``sign_bytes`` makes each byte 0xFF where
+its top bit is set: the kernel's one ``prmt``), and ``M[r, c] * x`` is the
+XOR of ``2^j * x`` over the set bits j of ``M[r, c]``. By Horner's rule
+over the bits, each output row is
+
+    out_r = S_r0 ^ xtime(S_r1 ^ xtime(... xtime(S_rt)))
+
+where ``S_rj`` XORs the input rows whose matrix entry has bit j set and
+``t`` is row r's highest set bit: a fixed selection of input rows and at
+most seven doublings per output row. For a matrix known ahead of time the
+selection costs nothing per element. Counterpart of
+seaweedfs_tpu/ops/rs_xor.py (``gf_matmul_sel``, and the Pallas kernel of
+``_sel_kernel_factory`` behind ``apply_matrix_sel_pallas``), whose bytes it
+equals.
 
 The kernel (csrc/gf_sel.cu) is a template compiled once per matrix, with
 the matrix baked in (ops/_build.py), so it serves matrices that are few
@@ -34,11 +41,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, rs_xor
 
 TEMPLATE = "gf_sel.cu"
-# the matrix is unrolled into the kernel: its accumulators are 4 * R
-# registers a thread, and compile time grows with R * C
+# the matrix is unrolled into the kernel: a thread holds C input and R
+# accumulator chunks of 4 words (2 for a large matrix), and compile time
+# grows with R * C
 MAX_ROWS = 32
 MAX_COLS = 64
 # loaded libraries kept per process (LRU), as the reference caps its
@@ -76,40 +84,32 @@ def _check_operands(matrix, data: torch.Tensor) -> tuple[np.ndarray, int,
 
 
 def _xtime(w: torch.Tensor) -> torch.Tensor:
-    """GF(256) doubling of the 4 packed bytes of each word (int64 holding
-    a 32-bit value, so no product or shift leaves 64 bits)."""
-    return ((w << 1) & 0xFEFEFEFE) ^ (((w >> 7) & 0x01010101) * 0x1D)
+    """GF(256) doubling of the 4 packed bytes of each 32-bit word (held in
+    int64, so no shift leaves 64 bits), with the kernel's sign-replicated
+    reduction term."""
+    return ((w << 1) & 0xFEFEFEFE) ^ (rs_xor.sign_bytes(w) & 0x1D1D1D1D)
 
 
 def gf_matmul_sel_torch(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
-    """out[R, B] = matrix[R, C] (x) data[C, B] by the xtime-select scheme,
-    in plain PyTorch on data's device: each input row's doubling chain,
-    XORed into the output rows its matrix bits select (the kernel's
-    order). Any B (the ragged tail is zero-padded to a whole word and
-    sliced off)."""
+    """out[R, B] = matrix[R, C] (x) data[C, B] in plain PyTorch on data's
+    device, by the kernel's arithmetic: per output row, Horner's rule over
+    its matrix bits from the highest set one, each step XORing in the
+    input rows that bit selects. Any B and any row stride."""
     m, r, c, b = _check_operands(matrix, data)
-    pad = (-b) % 4
-    d = data.to(torch.int64)
-    if pad:
-        d = torch.nn.functional.pad(d, (0, pad))
-    d = d.reshape(c, -1, 4)
-    words = d[..., 0] | (d[..., 1] << 8) | (d[..., 2] << 16) | (d[..., 3] << 24)
-    acc = torch.zeros((r, words.shape[1]), dtype=torch.int64,
+    words = rs_xor.pack_words(data)
+    out = torch.zeros((r, words.shape[1]), dtype=torch.int64,
                       device=data.device)
-    # picks[c][j]: the output rows that take link j of input row c
-    picks = [[[] for _ in range(8)] for _ in range(c)]
     for ri, sel in enumerate(_matrix_bit_rows(m)):
-        for ci, j in sel:
-            picks[ci][j].append(ri)
-    for ci in range(c):
-        y = words[ci]
-        for j in range(8):
-            for ri in picks[ci][j]:
-                acc[ri] ^= y
-            if j < 7:
-                y = _xtime(y)
-    out = torch.stack([(acc >> (8 * q)) & 0xFF for q in range(4)], dim=-1)
-    return out.reshape(r, -1)[:, :b].to(torch.uint8)
+        bits = [[ci for ci, jj in sel if jj == j] for j in range(8)]
+        top = max((j for j in range(8) if bits[j]), default=-1)
+        h = torch.zeros_like(out[ri])
+        for j in range(top, -1, -1):
+            if j < top:
+                h = _xtime(h)
+            for ci in bits[j]:
+                h = h ^ words[ci]
+        out[ri] = h
+    return rs_xor.unpack_words(out, b)
 
 
 def _raw_key(m: np.ndarray) -> tuple:

@@ -73,6 +73,48 @@ def test_xor_plain_matches_jax_and_pallas(kind, b):
     assert np.array_equal(got, _oracle(m, d))
 
 
+def _xor_all_agree(m: np.ndarray, view: torch.Tensor) -> None:
+    """K1's plain version on `view` (any row stride) equals the JAX
+    package's gf_matmul_xor, its Pallas kernel in the interpreter and the
+    rs_cpu oracle, byte for byte."""
+    d = np.ascontiguousarray(view.numpy())
+    b = d.shape[1]
+    coef = gfmat.xor_coefficients(m)
+    got = rs_xor.gf_matmul_xor_torch(torch.from_numpy(coef), view).numpy()
+    padded = np.pad(d, ((0, 0), (0, (-b) % 4)))
+    ref = np.asarray(ref_rs_xor.gf_matmul_xor(jnp.asarray(coef),
+                                              jnp.asarray(padded)))[:, :b]
+    pallas = np.asarray(ref_rs_xor.apply_matrix_xor_pallas(
+        m, jnp.asarray(d), interpret=True))
+    assert got.dtype == np.uint8 and got.shape == (m.shape[0], b)
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(got, _oracle(m, d))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6, 7, 8, 14])
+def test_xor_plain_at_every_r(r):
+    """Every R the kernel specialises on (1..8) and one past a pass of 8."""
+    rng = np.random.default_rng(100 + r)
+    m = rng.integers(0, 256, size=(r, 10), dtype=np.uint8)
+    _xor_all_agree(m, torch.from_numpy(_data(10, 1000 + r, seed=r)))
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_xor_plain_on_column_slices(offset):
+    """A column slice at each byte offset of a buffer whose row stride
+    (4133) is no multiple of 16: the layout the kernel realigns."""
+    wide = torch.from_numpy(_data(10, 4133, seed=200 + offset))
+    _xor_all_agree(_matrix("decode"), wide[:, offset:offset + 4096 + 7])
+
+
+@pytest.mark.parametrize("b", range(1, 48))
+def test_xor_plain_at_narrow_widths(b):
+    """Widths 1..47: spans shorter than, equal to and a little past one
+    to three 16-byte chunks, stacked with row stride b."""
+    _xor_all_agree(_matrix("encode"), torch.from_numpy(_data(10, b, seed=b)))
+
+
 @pytest.mark.parametrize("b", WIDTHS)
 @pytest.mark.parametrize("kind", ["encode", "decode"])
 def test_bits_plain_matches_jax_and_pallas(kind, b):
@@ -169,3 +211,97 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     paths = {_build.library_path(s) for s in _build.SOURCES}
     assert len(paths) == len(_build.SOURCES)
     assert all(p.parent == tmp_path / "kernels" for p in paths)
+
+
+def test_library_names_cover_every_header(monkeypatch, tmp_path):
+    """Editing or adding a header in csrc/ renames both kinds of library
+    (a plain source's and a per-matrix template's), so a stale library is
+    never loaded; checked without nvcc in a copy of csrc/."""
+    from seaweedfs_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    m = _matrix("encode")
+
+    def names():
+        return (_build.library_path("gf_xor.cu"),
+                _build.specialised_path("gf_sel.cu", m))
+
+    before = names()
+    assert names() == before
+    header = csrc / "gf_chunks.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = names()
+    assert edited[0] != before[0] and edited[1] != before[1]
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    added = names()
+    assert added[0] != edited[0] and added[1] != edited[1]
+
+
+def test_launch_counts_by_key():
+    """A launch counts once in `launches` and once under its key (K1's
+    wrapper keys by R); reset clears both; a refused launch counts
+    nowhere."""
+    from types import SimpleNamespace
+
+    from seaweedfs_tpu_torch.ops import _build
+
+    codes = iter([0, 0, 0, 2])
+    lib = SimpleNamespace(k_launch=lambda *a: next(codes),
+                          k_error_string=lambda code: b"refused")
+    counter = _build._Launcher("k")
+    counter._launch(lib, key=1)
+    counter._launch(lib, key=1)
+    counter._launch(lib)
+    assert counter.launches == 3 and counter.launches_by == {1: 2}
+    with pytest.raises(RuntimeError, match="refused"):
+        counter._launch(lib, key=4)
+    assert counter.launches == 3 and counter.launches_by == {1: 2}
+    counter.reset()
+    assert counter.launches == 0 and counter.launches_by == {}
+
+
+def test_build_times_each_library_and_keeps_its_report(monkeypatch, tmp_path):
+    """build() starts one compiler per missing library, all at once, and
+    gives each its own seconds (a quick build is not charged a slow one's
+    wait), keeps the compiler's report beside each library, finds built
+    libraries without compiling, and raises with the report when a build
+    fails. A stand-in script takes nvcc's place."""
+    import stat
+    import sys
+    from seaweedfs_tpu_torch.ops import _build
+
+    fake = tmp_path / "fake_nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "args = sys.argv[1:]\n"
+        "src = args[-1]\n"
+        "if 'broken' in src:\n"
+        "    print('error: broken source'); sys.exit(2)\n"
+        "time.sleep(1.5 if 'slow' in src else 0.0)\n"
+        "open(args[args.index('-o') + 1], 'w').write('lib')\n"
+        "print('ptxas info    : Used 12 registers')\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("quick.cu", "slow.cu", "broken.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+
+    built = _build.build(("slow.cu", "quick.cu"))
+    assert built["quick.cu"].seconds < 1.0 <= built["slow.cu"].seconds
+    for b in built.values():
+        assert b.path.exists()
+        assert "Used 12 registers" in _build.build_log(b.path)
+    again = _build.build(("slow.cu", "quick.cu"))
+    assert {b.seconds for b in again.values()} == {0.0}
+    with pytest.raises(RuntimeError, match="broken source"):
+        _build.build(("broken.cu",))
+    assert not _build.library_path("broken.cu").exists()

@@ -63,6 +63,43 @@ def test_sel_plain_matches_jax_pallas_xla_and_oracle(name, b):
     assert np.array_equal(got, oracle)
 
 
+def _sel_all_agree(m: np.ndarray, view: torch.Tensor) -> None:
+    """K3's plain version on `view` (any row stride) equals the JAX
+    package's Pallas kernel in the interpreter, its XLA form and the
+    rs_cpu oracle, byte for byte."""
+    d = np.ascontiguousarray(view.numpy())
+    got = rs_sel.gf_matmul_sel_torch(m, view).numpy()
+    assert got.dtype == np.uint8 and got.shape == (m.shape[0], d.shape[1])
+    pallas = np.asarray(ref_rs_xor.apply_matrix_sel_pallas(
+        m, jnp.asarray(d), interpret=True))
+    xla = np.asarray(ref_rs_xor.apply_matrix_sel(m, jnp.asarray(d)))
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(got, xla)
+    assert np.array_equal(got, RSCodecCPU(10, 4)._matmul(m, d))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6, 7, 8, 14])
+def test_sel_plain_at_every_r(r):
+    rng = np.random.default_rng(300 + r)
+    m = rng.integers(0, 256, size=(r, 10), dtype=np.uint8)
+    _sel_all_agree(m, torch.from_numpy(_data(10, 1000 + r, seed=r)))
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_sel_plain_on_column_slices(offset):
+    """A column slice at each byte offset of a buffer whose row stride
+    (4133) is no multiple of 16: the layout the kernel realigns."""
+    wide = torch.from_numpy(_data(10, 4133, seed=400 + offset))
+    _sel_all_agree(_encode_matrix("rs_10_4"),
+                   wide[:, offset:offset + 4096 + 7])
+
+
+@pytest.mark.parametrize("b", range(1, 48))
+def test_sel_plain_at_narrow_widths(b):
+    _sel_all_agree(_encode_matrix("rs_10_4"),
+                   torch.from_numpy(_data(10, b, seed=500 + b)))
+
+
 @pytest.mark.parametrize("name", MATRICES)
 def test_matrix_bit_rows_equal(name):
     m = _encode_matrix(name)
