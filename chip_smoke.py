@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 128]
                           [--sched-volume-mb 512] [--sched-volumes 8]
-                          [--baseline DIR]
+                          [--baseline DIR] [--only gf_xor|gf_bits|gf_sel]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and nvidia-smi; exits non-zero
 and prints no result without them. Phases, each printing its own line:
@@ -11,7 +11,8 @@ and prints no result without them. Phases, each printing its own line:
   1. device          card name, and name + power limit from nvidia-smi
   2. build           nvcc builds K1 and K2 from ops/csrc/ and K3 (the
                      gf_sel.cu template) once per encode matrix it serves
-                     here, all in parallel, with each build's time
+                     here, all in parallel, with each build's time and
+                     registers (K1 by C/R, K2 by k-steps S)
   3. kernels         K1 (gf_xor.cu), K2 (gf_bits.cu) and K3 (gf_sel.cu)
                      against their plain PyTorch versions on the card, byte
                      for byte: K1 and K2 at the encode [4,10] and a fused
@@ -23,17 +24,20 @@ and prints no result without them. Phases, each printing its own line:
                      row stride not a multiple of 16, as the scheduler
                      packs them), a row-strided input, the refusal of a
                      transposed one,
-                     and the golden RS(10,4) shard hashes. Then the layouts
-                     K1 and K3 realign: column slices at each row offset
-                     0-15 of a buffer with row stride 8221, slices whose
-                     span ends at the buffer's last byte, widths 1-47, and
-                     K1 at every R in 1-8 and 14. Then CUDA-event times of
+                     and the golden RS(10,4) shard hashes; K2 first at the
+                     GF identity [10,10] and its [1,10] rows (its MMA
+                     fragment layout) and at the stacked width too. Then
+                     the layouts the kernels realign: column slices at
+                     each row offset 0-15 of a buffer with row stride
+                     8221, slices whose span ends at the buffer's last
+                     byte, widths 1-47, K1 and K2 at every R in 1-8 and 14,
+                     K2 at C in {1, 3, 17, 33, 64}. Then CUDA-event times of
                      each kernel and plain version at the shapes the main
                      path launches (TIMED_SHAPES), each beside its bytes
                      bound, and an empty kernel's time at the degraded-read
                      shape (its floor); with --baseline, another
-                     checkout's K1 and K3 timed in the same turns. Every
-                     library must build without register spills
+                     checkout's K1, K2 and K3 timed in the same turns.
+                     Every library must build without register spills
   4. pipeline        a seeded 1 GiB volume (.dat + .idx) through the port's
                      write_ec_files / write_sorted_file_from_idx with
                      new_coder() on cuda (kernel K1, the default): shard
@@ -50,6 +54,9 @@ and prints no result without them. Phases, each printing its own line:
                      reconstruct lanes). Shards against the cpu coder;
                      K3 launches must equal the encode lane's batches, and
                      some batch must have stacked more than one slab
+
+--only KERNEL builds, checks and times that kernel alone and runs only its
+pipeline phase (a short loop for one kernel); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
 read just after; a kernel that path never launched fails the run. K1's
@@ -121,6 +128,9 @@ TIMED_SHAPES = (
     ("gf_xor", "rebuild [3,10]", "decode", MIB),
     ("gf_xor", "degraded read [1,10]", "degraded", DEGRADED_WIDTH),
     ("gf_bits", "encode [4,10]", "encode", MIB),
+    ("gf_bits", "rebuild [3,10]", "decode", MIB),
+    ("gf_bits", "stacked flush [4,10]", "encode", STACKED_WIDTH),
+    ("gf_bits", "degraded read [1,10]", "degraded", DEGRADED_WIDTH),
     ("gf_sel", "encode [4,10]", "encode", MIB),
     ("gf_sel", "stacked flush [4,10]", "encode", STACKED_WIDTH),
 )
@@ -131,6 +141,9 @@ MIN_HEALTHY_READS = 500
 _MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                 ("H200", 4.8e12), ("H100", 3.35e12))
 
+# the pipeline phase that drives each kernel
+PHASES = {"gf_xor": "pipeline", "gf_bits": "pipeline-bits",
+          "gf_sel": "pipeline-sched"}
 # each kernel: its module, operand form and the TPU kernel it replaces
 KERNELS = {
     "gf_xor": dict(
@@ -261,23 +274,46 @@ def _check_equal(name: str, what: str, op, data) -> int:
     return err
 
 
-def check_kernels(dev) -> dict:
-    """Each kernel against its plain version on the card, byte for byte:
-    the shapes and matrices of PRs 1-2, then the layouts the redesigned
-    K1 and K3 realign. Returns {kernel: max_abs_err}."""
+def check_identity(dev) -> None:
+    """K2's fragment layout first: the GF identity [10, 10] returns its
+    input, and each row of it, as a [1, 10] matrix, returns one input
+    row, at a width with a ragged tail."""
+    data = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, size=(10, 4096 + 37), dtype=np.uint8)).to(dev)
+    eye = np.eye(10, dtype=np.uint8)
+    got = _run("gf_bits", _operand("bits", eye, dev), data, plain=False)
+    if not torch.equal(got, data):
+        raise AssertionError("gf_bits: the identity does not return its "
+                             "input")
+    for i in range(10):
+        got = _run("gf_bits", _operand("bits", eye[i:i + 1], dev), data,
+                   plain=False)
+        if not torch.equal(got[0], data[i]):
+            raise AssertionError(f"gf_bits: identity row {i} does not "
+                                 f"return input row {i}")
+    log("kernels", "gf_bits: identity [10,10] returns its input, each "
+                   "[1,10] identity row its input row")
+
+
+def check_kernels(dev, names=tuple(KERNELS)) -> dict:
+    """Each of `names` against its plain version on the card, byte for
+    byte: the shapes and matrices of PRs 1-2, then the layouts the
+    redesigned kernels realign. Returns {kernel: max_abs_err}."""
     rng = np.random.default_rng(2024)
     mats = _matrices()
+    if "gf_bits" in names:
+        check_identity(dev)
     wide = rng.integers(0, 256, size=(8, 40), dtype=np.uint8)
     matrices = {"encode[4,10]": mats["encode"], "decode[3,10]": mats["decode"],
                 "wide[8,40]": wide}
     sel = {f"{n}{list(m.shape)}": m for n, m in sel_matrices().items()}
     worst = {}
     for name, spec in KERNELS.items():
+        if name not in names:
+            continue
         err = 0
         checked = 0
-        # K3 (encode lane) and K1 (reconstruct lanes) take stacked flushes
-        widths = (MIB, MIB + 4, 4095, 1) + (
-            (STACKED_WIDTH,) if name in ("gf_xor", "gf_sel") else ())
+        widths = (MIB, MIB + 4, 4095, 1, STACKED_WIDTH)
         for mname, mat in (sel if name == "gf_sel" else matrices).items():
             op = _operand(spec["form"], mat, dev)
             c = mat.shape[1]
@@ -313,12 +349,14 @@ def check_kernels(dev) -> dict:
                        f"transposed input refused, golden hashes match")
         worst[name] = err
 
-    # the layouts K1 and K3 realign: every row offset, narrow widths, spans
-    # that end at their allocation's last byte; and K1 at every R
-    for name, mats_of in (("gf_xor", {"encode[4,10]": mats["encode"],
-                                      "decode[3,10]": mats["decode"],
-                                      "degraded[1,10]": mats["degraded"]}),
+    # the layouts the kernels realign: every row offset, narrow widths, spans
+    # that end at their allocation's last byte; and K1 and K2 at every R
+    rs_mats = {"encode[4,10]": mats["encode"], "decode[3,10]": mats["decode"],
+               "degraded[1,10]": mats["degraded"]}
+    for name, mats_of in (("gf_xor", rs_mats), ("gf_bits", rs_mats),
                           ("gf_sel", sel)):
+        if name not in names:
+            continue
         err = worst[name]
         checked = 0
         for mname, mat in mats_of.items():
@@ -340,29 +378,49 @@ def check_kernels(dev) -> dict:
                     0, 256, size=(c, b), dtype=np.uint8)).to(dev)
                 err = max(err, _check_equal(name, f"{mname} B={b}", op, data))
                 checked += 1
-        if name == "gf_xor":
+        if name in ("gf_xor", "gf_bits"):
             for r in (1, 2, 3, 4, 5, 6, 7, 8, 14):
                 mat = rng.integers(0, 256, size=(r, 10), dtype=np.uint8)
-                op = _operand("xor", mat, dev)
+                op = _operand(KERNELS[name]["form"], mat, dev)
                 for b in (64 * 1024 + 3, DEGRADED_WIDTH):
                     data = torch.from_numpy(rng.integers(
                         0, 256, size=(10, b), dtype=np.uint8)).to(dev)
                     err = max(err, _check_equal(name, f"R={r} B={b}", op,
                                                 data))
                     checked += 1
+        extra = ", R = 1-8 and 14" if name != "gf_sel" else ""
+        if name == "gf_bits":
+            # C past a 4-byte word and past one 256-bit k-step
+            for c in (1, 3, 17, 33, 64):
+                mat = rng.integers(0, 256, size=(4, c), dtype=np.uint8)
+                op = _operand("bits", mat, dev)
+                base = torch.from_numpy(rng.integers(
+                    0, 256, size=(c, 8221), dtype=np.uint8)).to(dev)
+                dense = torch.from_numpy(rng.integers(
+                    0, 256, size=(c, 65539), dtype=np.uint8)).to(dev)
+                for what, data in (("B=65539", dense),
+                                   ("offset 7 to the end", base[:, 7:]),
+                                   ("offset 3 B=37", base[:, 3:40])):
+                    err = max(err, _check_equal(name, f"[4,{c}] {what}", op,
+                                                data))
+                    checked += 1
+            extra += ", C in {1, 3, 17, 33, 64}"
         log("kernels", f"{name}: {checked} more layouts byte-identical to "
                        f"plain (row offsets 0-15 at row stride 8221, spans "
-                       f"ending at the allocation's end, widths 1-47"
-                       f"{', R = 1-8 and 14' if name == 'gf_xor' else ''})")
+                       f"ending at the allocation's end, widths 1-47{extra})")
         worst[name] = err
     return worst
 
 
-def baseline_kernels(root: str, workdir: str | None) -> dict:
-    """K1 (gf_xor.cu) and K3 (gf_sel.cu for the RS(10,4) encode matrix) of
-    another checkout at `root`, built with this checkout's nvcc flags and
-    bound by the same C interface: {kernel: fn(operand, data) -> out}, to
-    time another version beside this one in the same run."""
+def baseline_kernels(root: str, workdir: str | None,
+                     names=tuple(KERNELS)) -> dict:
+    """K1 (gf_xor.cu), K2 (gf_bits.cu) and K3 (gf_sel.cu for the RS(10,4)
+    encode matrix) of another checkout at `root`, built with this
+    checkout's nvcc flags and bound by the same C interface: {kernel:
+    fn(operand, data) -> out}, to time another version beside this one in
+    the same run. The other K2 is handed its own operand: an earlier K2
+    (before its tensor-core form, which takes rs_bits.mma_words) takes the
+    int8 bit matrix itself."""
     import ctypes
 
     csrc = os.path.join(root, "seaweedfs_tpu_torch", "ops", "csrc")
@@ -375,7 +433,9 @@ def baseline_kernels(root: str, workdir: str | None) -> dict:
          os.path.join(out_dir, f"{name}.so"), *inputs],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, inputs in (("gf_xor", [os.path.join(csrc, "gf_xor.cu")]),
-                             ("gf_sel", ["-I", csrc, unit]))}
+                             ("gf_bits", [os.path.join(csrc, "gf_bits.cu")]),
+                             ("gf_sel", ["-I", csrc, unit]))
+        if name in names}
     libs = {}
     for name, proc in jobs.items():
         text, _ = proc.communicate(timeout=600)
@@ -383,9 +443,14 @@ def baseline_kernels(root: str, workdir: str | None) -> dict:
             raise RuntimeError(f"baseline {name} failed to build:\n{text}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    libs["gf_xor"].gf_xor_launch.argtypes = [vp, vp, ll, vp, ll, i, i, ll,
-                                             i, vp]
-    libs["gf_sel"].gf_sel_launch.argtypes = [vp, ll, vp, ll, ll, i, vp]
+    for name in ("gf_xor", "gf_bits"):
+        if name in libs:
+            getattr(libs[name], f"{name}_launch").argtypes = [
+                vp, vp, ll, vp, ll, i, i, ll, i, vp]
+    if "gf_sel" in libs:
+        libs["gf_sel"].gf_sel_launch.argtypes = [vp, ll, vp, ll, ll, i, vp]
+    with open(os.path.join(csrc, "gf_bits.cu")) as f:
+        packed_k2 = "m16n8k256" in f.read()
 
     def launch(name, *args):
         code = getattr(libs[name], f"{name}_launch")(*args)
@@ -401,6 +466,16 @@ def baseline_kernels(root: str, workdir: str | None) -> dict:
                torch.cuda.current_stream(data.device).cuda_stream)
         return out
 
+    def bits(mbits, data):
+        op = rs_bits.mma_words(mbits) if packed_k2 else mbits
+        out = torch.empty((mbits.shape[0] // 8, data.shape[1]),
+                          dtype=torch.uint8, device=data.device)
+        launch("gf_bits", op.data_ptr(), data.data_ptr(), data.stride(0),
+               out.data_ptr(), out.stride(0), out.shape[0], data.shape[0],
+               data.shape[1], data.device.index,
+               torch.cuda.current_stream(data.device).cuda_stream)
+        return out
+
     def sel(matrix, data):
         if not np.array_equal(matrix, gf256.parity_matrix(10, 4)):
             raise ValueError("the baseline K3 is built for RS(10,4) only")
@@ -411,10 +486,13 @@ def baseline_kernels(root: str, workdir: str | None) -> dict:
                torch.cuda.current_stream(data.device).cuda_stream)
         return out
 
-    return {"gf_xor": xor, "gf_sel": sel}
+    return {name: fn for name, fn in
+            (("gf_xor", xor), ("gf_bits", bits), ("gf_sel", sel))
+            if name in libs}
 
 
-def time_shapes(dev, card: str, baseline: dict | None = None) -> dict:
+def time_shapes(dev, card: str, baseline: dict | None = None,
+                names=tuple(KERNELS)) -> dict:
     """CUDA-event times of each kernel and its plain version at the shapes
     the main path launches (TIMED_SHAPES), with each shape's bytes bound;
     at the degraded-read shape also an empty kernel's time, its floor; and,
@@ -426,6 +504,8 @@ def time_shapes(dev, card: str, baseline: dict | None = None) -> dict:
     rate = memory_rate(card)
     out = {}
     for name, label, mname, b in TIMED_SHAPES:
+        if name not in names:
+            continue
         mat = mats[mname]
         op = _operand(KERNELS[name]["form"], mat, dev)
         r, c = mat.shape
@@ -805,8 +885,12 @@ def main(argv=None) -> int:
     ap.add_argument("--workdir", default=None,
                     help="where volumes are written (default: TMPDIR)")
     ap.add_argument("--baseline", default=None, metavar="DIR",
-                    help="another checkout whose K1 and K3 are built and "
+                    help="another checkout whose kernels are built and "
                          "timed beside this one's at every timed shape")
+    ap.add_argument("--only", choices=tuple(KERNELS), default=None,
+                    help="build, check and time this kernel alone and run "
+                         "only its pipeline phase (a short loop for one "
+                         "kernel; the default runs everything)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -825,9 +909,18 @@ def main(argv=None) -> int:
     # one nvcc per library, all started together: K1, K2, and K3 once per
     # encode matrix it serves here (the scheduler phase would otherwise
     # build its matrix on the flusher thread, holding every lane)
+    names = (args.only,) if args.only else tuple(KERNELS)
+    if args.only:
+        log("only", f"{args.only} alone: skipping the other kernels' builds, "
+                    f"checks and timings and every pipeline phase but "
+                    f"{PHASES[args.only]}")
     t0 = time.perf_counter()
-    sel = sel_matrices()
-    built = _build.build(_build.SOURCES, specialised=[
+    sel = sel_matrices() if "gf_sel" in names else {}
+    # pipeline-sched runs K1 on its reconstruct lanes
+    sources = tuple(src for src, users in (("gf_xor.cu", ("gf_xor", "gf_sel")),
+                                           ("gf_bits.cu", ("gf_bits",)))
+                    if set(users) & set(names))
+    built = _build.build(sources, specialised=[
         (rs_sel.TEMPLATE, m) for m in sel.values()])
     log("build", f"nvcc built {len(built)} libraries in "
                  f"{time.perf_counter() - t0:.1f} s")
@@ -843,10 +936,15 @@ def main(argv=None) -> int:
         k1 = {f"{g}/{r}": int(n) for g, r, n in re.findall(
             r"gf_xor_kernelILi(\d+)ELi(\d+)E.*?Used (\d+) registers", text,
             flags=re.S) if g == "10"}
+        # K2's instances: k-steps S / B fragments in registers (1) or not
+        k2 = {f"{st}/{rg}": int(n) for st, rg, n in re.findall(
+            r"gf_bits_kernelILi(\d+)ELb([01])E.*?Used (\d+) registers", text,
+            flags=re.S)}
+        by = (f"; registers by C/R {k1}" if k1 else "") + (
+            f"; registers by S/in-registers {k2}" if k2 else "")
         log("build", f"{labels.get(key, key)}: {b.seconds:.1f} s; "
                      f"{len(regs)} kernels, registers {min(regs)}-"
-                     f"{max(regs)}, spill bytes {sum(spills)}"
-                     f"{f'; registers by C/R {k1}' if k1 else ''}")
+                     f"{max(regs)}, spill bytes {sum(spills)}{by}")
         if sum(spills):
             spilled = [entry.split("'")[1] for entry in
                        text.split("Compiling entry function")[1:]
@@ -854,24 +952,32 @@ def main(argv=None) -> int:
             raise AssertionError(f"{labels.get(key, key)} spills registers "
                                  f"in {spilled}")
 
-    max_err = check_kernels(dev)
+    max_err = check_kernels(dev, names)
     baseline = None
     if args.baseline:
         t0 = time.perf_counter()
-        baseline = baseline_kernels(args.baseline, args.workdir)
-        log("build", f"baseline K1 and K3 from {args.baseline} in "
-                     f"{time.perf_counter() - t0:.1f} s")
-    timed = time_shapes(dev, card, baseline)
+        baseline = baseline_kernels(args.baseline, args.workdir, names)
+        log("build", f"baseline {', '.join(baseline)} from {args.baseline} "
+                     f"in {time.perf_counter() - t0:.1f} s")
+    timed = time_shapes(dev, card, baseline, names)
 
-    k1 = pipeline("pipeline", "gf_xor", args.volume_mb, seed=1,
-                  degraded=True, workdir=args.workdir, card=card)
-    k2 = pipeline("pipeline-bits", "gf_bits", args.bits_volume_mb, seed=2,
-                  degraded=False, workdir=args.workdir, card=card)
-    k3 = pipeline_sched(args.sched_volume_mb, args.sched_volumes, seed=3,
-                        workdir=args.workdir, card=card)
+    paths = {}
+    if "gf_xor" in names:
+        paths["gf_xor"] = pipeline("pipeline", "gf_xor", args.volume_mb,
+                                   seed=1, degraded=True,
+                                   workdir=args.workdir, card=card)
+    if "gf_bits" in names:
+        paths["gf_bits"] = pipeline("pipeline-bits", "gf_bits",
+                                    args.bits_volume_mb, seed=2,
+                                    degraded=False, workdir=args.workdir,
+                                    card=card)
+    if "gf_sel" in names:
+        paths["gf_sel"] = pipeline_sched(args.sched_volume_mb,
+                                         args.sched_volumes, seed=3,
+                                         workdir=args.workdir, card=card)
 
     rows = []
-    for name, path in (("gf_xor", k1), ("gf_bits", k2), ("gf_sel", k3)):
+    for name, path in paths.items():
         spec = KERNELS[name]
         at = timed[(name, "encode [4,10]")]  # the [10, 1 MiB] encode
         rows.append(dict(

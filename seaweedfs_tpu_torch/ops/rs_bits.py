@@ -15,7 +15,9 @@ Three functions, as in ops/rs_xor.py:
   * ``gf_matmul_bits_torch`` — the plain PyTorch version (unpack, dot,
     ``& 1``, pack) for the tests, the CPU path and the kernel check.
   * ``gf_matmul_bits_cuda`` — the wrapper of the CUDA kernel
-    (csrc/gf_bits.cu). It launches the kernel or raises.
+    (csrc/gf_bits.cu), a 1-bit AND-popcount tensor-core product. It packs
+    the bit matrix once per operand into the MMA's fragment order
+    (``mma_words``) and launches the kernel or raises.
   * ``gf_matmul_bits`` — the plain version on a CPU tensor, the kernel on
     a CUDA tensor.
 """
@@ -45,6 +47,33 @@ def _check_operands(matrix_bits: torch.Tensor,
     return r8 // 8, c, b
 
 
+def mma_words(matrix_bits: torch.Tensor) -> torch.Tensor:
+    """The bit matrix [8R, 8C] packed for K2's b1 MMA, on its own device:
+    int32 [R, S, 32, 2] with S = ceil(C / 32) k-steps of 256 bits, where
+    [r, s, lane, h] holds bits 32w..32w+31 of row 8r + lane // 4 (bit t =
+    column 32w + t, zero past 8C), w = 8s + 4h + lane % 4: lane's two B
+    words of the k-step. No row is padded (one MMA makes one output row).
+    Computed once per operand and kept on the tensor (recomputed if the
+    tensor is changed in place)."""
+    cached = getattr(matrix_bits, "_gf_mma_words", None)
+    if cached is not None and cached[0] == matrix_bits._version:
+        return cached[1]
+    r8, c8 = matrix_bits.shape
+    r, s = r8 // 8, (c8 + 255) // 256
+    bits = torch.zeros((r8, 256 * s), dtype=torch.int64,
+                       device=matrix_bits.device)
+    bits[:, :c8] = matrix_bits.to(torch.int64) & 1
+    weights = 1 << torch.arange(32, dtype=torch.int64,
+                                device=matrix_bits.device)
+    words = (bits.reshape(r8, 8 * s, 32) * weights).sum(dim=2)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    # [r, g, s, h, t] -> [r, s, g, t, h]: lane = 4g + t
+    packed = words.reshape(r, 8, s, 2, 4).permute(0, 2, 1, 4, 3)
+    packed = packed.to(torch.int32).contiguous().reshape(r, s, 32, 2)
+    matrix_bits._gf_mma_words = (matrix_bits._version, packed)
+    return packed
+
+
 def gf_matmul_bits_torch(matrix_bits: torch.Tensor,
                          data: torch.Tensor) -> torch.Tensor:
     """out[R, B] = GFmat (x) data[C, B] with the matrix in bit form
@@ -67,8 +96,7 @@ def gf_matmul_bits_cuda(matrix_bits: torch.Tensor,
                         data: torch.Tensor) -> torch.Tensor:
     """The K2 kernel on a CUDA tensor. `data` [C, B] uint8 must have unit
     stride along B (any row stride); other layouts are refused, not
-    copied. `matrix_bits` is int8 [8R, 8C], contiguous, on the same
-    device. Raises on a refused launch; never falls back."""
+    copied. `matrix_bits` is int8 [8R, 8C] on the same device. Raises on a refused launch; never falls back."""
     r, c, b = _check_operands(matrix_bits, data)
     if data.device.type != "cuda" or matrix_bits.device != data.device:
         raise ValueError(f"gf_matmul_bits_cuda needs data and matrix on one "
@@ -77,8 +105,6 @@ def gf_matmul_bits_cuda(matrix_bits: torch.Tensor,
     if b > 1 and data.stride(1) != 1:
         raise ValueError(f"data must have unit stride along bytes, got "
                          f"strides {data.stride()}")
-    if not matrix_bits.is_contiguous():
-        raise ValueError("matrix_bits must be contiguous")
     if r > 256 or c > 256:
         raise ValueError(f"a [{r}, {c}] matrix exceeds GF(256)'s 256 shards")
     out = torch.empty((r, b), dtype=torch.uint8, device=data.device)
@@ -87,8 +113,9 @@ def gf_matmul_bits_cuda(matrix_bits: torch.Tensor,
     dev = data.device.index if data.device.index is not None else \
         torch.cuda.current_device()
     KERNEL.check_smem(r, c, dev)
+    words = mma_words(matrix_bits)
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    KERNEL.launch(matrix_bits.data_ptr(), data.data_ptr(), data.stride(0),
+    KERNEL.launch(words.data_ptr(), data.data_ptr(), data.stride(0),
                   out.data_ptr(), out.stride(0), r, c, b, dev, stream)
     return out
 

@@ -135,6 +135,164 @@ def test_bits_plain_matches_jax_and_pallas(kind, b):
     assert np.array_equal(got, _oracle(m, d))
 
 
+def _bits_all_agree(m: np.ndarray, view: torch.Tensor,
+                    pallas: bool = False) -> None:
+    """K2's plain version on `view` (any row stride) equals the JAX
+    package's gf_matmul_bits and the rs_cpu oracle, byte for byte (and,
+    with `pallas`, its Pallas kernel in the interpreter)."""
+    d = np.ascontiguousarray(view.numpy())
+    r, b = m.shape[0], d.shape[1]
+    mbits = gfmat.gf_matrix_to_bits(m)
+    got = rs_bits.gf_matmul_bits_torch(torch.from_numpy(mbits), view).numpy()
+    ref = np.asarray(ref_rs_jax.gf_matmul_bits(jnp.asarray(mbits),
+                                               jnp.asarray(d)))
+    assert got.dtype == np.uint8 and got.shape == (r, b)
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, _oracle(m, d))
+    if pallas:
+        padded = np.pad(d, ((0, 0), (0, (-b) % TILE)))
+        want = np.asarray(ref_rs_pallas.gf_matmul_bits_pallas(
+            jnp.asarray(mbits), jnp.asarray(padded), r,
+            interpret=True))[:, :b]
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6, 7, 8, 14])
+def test_bits_plain_at_every_r(r):
+    """R = 1..8 and 14: one MMA per output row, none padded; the Pallas
+    kernel too at the rebuild's R = 3 and at 14."""
+    rng = np.random.default_rng(300 + r)
+    m = rng.integers(0, 256, size=(r, 10), dtype=np.uint8)
+    _bits_all_agree(m, torch.from_numpy(_data(10, 1000 + r, seed=r)),
+                    pallas=r in (3, 14))
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_bits_plain_on_column_slices(offset):
+    """A column slice at each byte offset of a buffer whose row stride
+    (4133) is no multiple of 16: the layout K2 realigns in shared memory."""
+    wide = torch.from_numpy(_data(10, 4133, seed=400 + offset))
+    _bits_all_agree(_matrix("decode"), wide[:, offset:offset + 4096 + 7])
+
+
+@pytest.mark.parametrize("b", range(1, 48))
+def test_bits_plain_at_narrow_widths(b):
+    """Widths 1..47: shorter than one 16-column MMA tile up to three."""
+    _bits_all_agree(_matrix("encode"),
+                    torch.from_numpy(_data(10, b, seed=500 + b)))
+
+
+@pytest.mark.parametrize("c", [1, 3, 17, 33, 64])
+def test_bits_plain_at_every_c(c):
+    """C that is no multiple of 4 (a partial column word) or past one
+    256-bit k-step (33, 64: two k-steps)."""
+    rng = np.random.default_rng(600 + c)
+    m = rng.integers(0, 256, size=(4, c), dtype=np.uint8)
+    _bits_all_agree(m, torch.from_numpy(_data(c, 777, seed=c)))
+
+
+def _unpack_mma_words(words: np.ndarray, c8: int) -> np.ndarray:
+    """mma_words back to the int8 [8R, 8C] bit matrix; asserts the padding
+    past column 8C is zero."""
+    r, s = words.shape[:2]
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    # [r, s, g, t, h] -> [r, g, s, h, t]: word 8s + 4h + t of row 8r + g
+    rows = w.reshape(r, s, 8, 4, 2).transpose(0, 2, 1, 4, 3).reshape(8 * r,
+                                                                   8 * s)
+    bits = (rows[:, :, None] >> np.arange(32)) & 1
+    bits = bits.reshape(8 * r, 256 * s)
+    assert not bits[:, c8:].any()
+    return bits[:, :c8].astype(np.int8)
+
+
+@pytest.mark.parametrize("r,c", [(1, 1), (3, 10), (4, 10), (7, 3), (14, 17),
+                                 (2, 33), (5, 64), (3, 255)])
+def test_mma_words_unpack_to_the_bit_matrix(r, c):
+    """K2's packed operand holds exactly gf_matrix_to_bits, in fragment
+    order, with zeros past 8C (odd C, C past one k-step) and no padded
+    rows."""
+    rng = np.random.default_rng(700 + r * c)
+    m = rng.integers(0, 256, size=(r, c), dtype=np.uint8)
+    mbits = gfmat.gf_matrix_to_bits(m)
+    words = rs_bits.mma_words(torch.from_numpy(mbits))
+    assert words.dtype == torch.int32
+    assert tuple(words.shape) == (r, (c + 31) // 32, 32, 2)
+    assert np.array_equal(_unpack_mma_words(words.numpy(), 8 * c), mbits)
+
+
+def _mma_model(words: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """What gf_bits.cu computes from the packed words, with m16n8k256's b1
+    fragments (lane = 4g + t). A warp takes 32 columns as two M tiles: rows
+    g, g+8 are columns 4g, 4g+2 of the first and 4g+1, 4g+3 of the second.
+    A (row-major): lane (g, t) holds word 4h + t of the k-step for rows g
+    (a0, a2) and g + 8 (a1, a3). B (column-major, N = bit rows 8r..8r+7):
+    lane (g, t) holds word 4h + t for bit row 8r + g (the packed [r, s,
+    lane, 0..1]). D[m, n] = sum of popc(A & B) over k sits in lane
+    (m % 8, n // 2), register 2 (m >= 8) + n % 2; the word of columns
+    4g..4g+3 is assembled from the quad's bits by ORs."""
+    r, s = words.shape[:2]
+    c, b = d.shape
+    rows = np.zeros((256 * s // 8, b + 32), dtype=np.uint64)
+    rows[:c, :b] = d
+    # word w of a column: its bytes 4w..4w+3, byte q at bits 8q
+    colw = sum(rows[q::4] << np.uint64(8 * q) for q in range(4))
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    out = np.zeros((r, b + 32), dtype=np.uint8)
+    tiles = ([4 * g for g in range(8)] + [4 * g + 2 for g in range(8)],
+             [4 * g + 1 for g in range(8)] + [4 * g + 3 for g in range(8)])
+    for x0 in range(0, b, 32):
+        for rr in range(r):
+            regs = np.zeros((2, 32, 4), dtype=np.int64)
+            for tile, colmap in enumerate(tiles):
+                for m in range(16):
+                    for n in range(8):
+                        acc = 0
+                        for ss in range(s):
+                            for kw in range(8):
+                                t, h = kw % 4, kw // 4
+                                a = int(colw[8 * ss + kw, x0 + colmap[m]])
+                                bw = int(w[rr, ss, 4 * n + t, h])
+                                acc += bin(a & bw).count("1")
+                        regs[tile, 4 * (m % 8) + n // 2,
+                             2 * (m >= 8) + n % 2] = acc
+            for g in range(8):
+                v = 0
+                for t in range(4):
+                    d1 = [int(x) & 1 for x in regs[0, 4 * g + t]]
+                    d2 = [int(x) & 1 for x in regs[1, 4 * g + t]]
+                    v |= (d1[0] | d1[1] << 1 | d2[0] << 8 | d2[1] << 9 |
+                          d1[2] << 16 | d1[3] << 17 | d2[2] << 24 |
+                          d2[3] << 25) << (2 * t)
+                for k in range(4):
+                    out[rr, x0 + 4 * g + k] = (v >> (8 * k)) & 0xFF
+    return out[:, :b]
+
+
+@pytest.mark.parametrize("r,c,b", [(4, 10, 37), (3, 10, 16), (1, 33, 21),
+                                   (14, 3, 9)])
+def test_mma_words_fragment_model(r, c, b):
+    """The packed words, read through the b1 MMA's fragment layout as
+    gf_bits.cu reads them, give K2's product."""
+    rng = np.random.default_rng(800 + r + c + b)
+    m = rng.integers(0, 256, size=(r, c), dtype=np.uint8)
+    d = _data(c, b, seed=900 + b)
+    words = rs_bits.mma_words(torch.from_numpy(gfmat.gf_matrix_to_bits(m)))
+    assert np.array_equal(_mma_model(words.numpy(), d), _oracle(m, d))
+
+
+def test_mma_words_kept_with_the_operand():
+    """Packed once per operand: a second call returns the same tensor; an
+    in-place change of the operand packs it again."""
+    mbits = torch.from_numpy(gfmat.gf_matrix_to_bits(_matrix("encode")))
+    first = rs_bits.mma_words(mbits)
+    assert rs_bits.mma_words(mbits) is first
+    mbits[0, 0] ^= 1
+    again = rs_bits.mma_words(mbits)
+    assert again is not first
+    assert np.array_equal(_unpack_mma_words(again.numpy(), 80),
+                          mbits.numpy())
+
+
 @pytest.mark.parametrize("r,c", [(1, 1), (8, 40), (3, 17), (14, 10)])
 def test_plain_versions_agree_on_any_shape(r, c):
     """Both plain versions at shapes beyond RS(10,4), row-strided input
