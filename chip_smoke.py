@@ -54,13 +54,32 @@ and prints no result without them. Phases, each printing its own line:
                      reconstruct lanes). Shards against the cpu coder;
                      K3 launches must equal the encode lane's batches, and
                      some batch must have stacked more than one slab
+  7. store           the volume server's storage layer: a Store over a
+                     fresh directory with its default coder (new_coder():
+                     cuda, K1, the dispatch scheduler) takes seeded needles
+                     of 1-64 KiB through Store.write_needle until the .dat
+                     reaches 1 GiB; then the ec.encode handlers' sequence
+                     (mark read-only, write_ec_files through
+                     Store.coder_for, write_sorted_file_from_idx,
+                     save_volume_info, mount_ec_shards, delete_volume),
+                     3 shards {0, 5, 13} deleted and the shards remounted,
+                     every needle read through Store.find_ec_volume and
+                     Needle.from_bytes (CRC checked), rebuild_ec_files +
+                     rebuild_ecx_file and a remount, then close() and a
+                     new Store on the same directory (the restart) that
+                     must find the EC volume and read a sample back. Shard
+                     sha256s against the numpy cpu coder, rebuilt shards
+                     sha-identical, reads byte-exact, the dirty marker
+                     lifted by close()
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
-pipeline phase (a short loop for one kernel); the run says what it skipped.
+pipeline phases (a short loop for one kernel; K1's are pipeline and
+store); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
-read just after; a kernel that path never launched fails the run. K1's
-launches are also split by R (1: degraded read, 3: rebuild, 4: encode). The
+read just after; a kernel that path never launched fails the run (K1's
+count in the JSON line is the sum over its two phases). K1's launches are
+also split by R (1 or 2: degraded read, 3: rebuild, 4: encode). The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -88,9 +107,13 @@ from seaweedfs_tpu_torch.models import geometry
 from seaweedfs_tpu_torch.models.coder import new_coder
 from seaweedfs_tpu_torch.ops import _build, gf256, gfmat, rs_bits, rs_sel, \
     rs_xor
-from seaweedfs_tpu_torch.storage import ec_files, idx, types
+from seaweedfs_tpu_torch.ops.rs_torch import RSCodecTorch
+from seaweedfs_tpu_torch.storage import crc, ec_files, idx, recovery, types
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry, locate_data
-from seaweedfs_tpu_torch.storage.ec_volume import EcVolume
+from seaweedfs_tpu_torch.storage.ec_volume import (EcVolume, rebuild_ecx_file,
+                                                   save_volume_info)
+from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.utils import stats as ec_stats
 
 # sha256 of each shard row of RS(10,4) over rng(0xEC) [10, 4096] — the
@@ -141,8 +164,8 @@ MIN_HEALTHY_READS = 500
 _MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                 ("H200", 4.8e12), ("H100", 3.35e12))
 
-# the pipeline phase that drives each kernel
-PHASES = {"gf_xor": "pipeline", "gf_bits": "pipeline-bits",
+# the pipeline phases that drive each kernel
+PHASES = {"gf_xor": "pipeline and store", "gf_bits": "pipeline-bits",
           "gf_sel": "pipeline-sched"}
 # each kernel: its module, operand form and the TPU kernel it replaces
 KERNELS = {
@@ -597,6 +620,51 @@ def cpu_oracle_hashes(base: str, geo: Geometry, workdir: str) -> list[str]:
         shutil.rmtree(odir)
 
 
+def check_shards(phase: str, base: str, geo: Geometry,
+                 workdir: str) -> tuple[list[str], float]:
+    """The shard sha256s of `base`, held against the numpy cpu coder's;
+    -> (hashes, seconds the oracle took)."""
+    hashes = shard_hashes(base, geo)
+    t0 = time.perf_counter()
+    oracle = cpu_oracle_hashes(base, geo, workdir)
+    oracle_s = time.perf_counter() - t0
+    if hashes != oracle:
+        bad = [i for i in range(geo.total_shards) if hashes[i] != oracle[i]]
+        raise AssertionError(f"{phase}: shards {bad} of {base} differ from "
+                             f"the cpu coder")
+    return hashes, oracle_s
+
+
+def encode_detail(st) -> str:
+    """Where one write_ec_files call spent its time (its EncodeStats)."""
+    return (f"{st.batches} slabs; reader: read {st.read_s:.3f} s, encode "
+            f"calls {st.dispatch_s:.3f} s; coordinator: device wait "
+            f"{st.device_wait_s:.3f} s; writers: {st.write_s:.3f} thread-s")
+
+
+def rebuild_checked(phase: str, base: str, geo: Geometry, coder,
+                    hashes: list[str], card: str, then=None) -> float:
+    """Rebuild the missing shards REBUILD_LOST (then `then(base)` inside
+    the timing), check them sha-identical to `hashes`; -> GB/s of
+    survivors read."""
+    rstats: dict = {}
+    t0 = time.perf_counter()
+    rebuilt = ec_files.rebuild_ec_files(base, coder, geo, stats=rstats)
+    if then is not None:
+        then(base)
+    torch.cuda.synchronize()
+    reb_s = time.perf_counter() - t0
+    if tuple(rebuilt) != REBUILD_LOST:
+        raise AssertionError(f"{phase}: rebuilt {rebuilt}, not {REBUILD_LOST}")
+    if shard_hashes(base, geo) != hashes:
+        raise AssertionError(f"{phase}: rebuilt shards differ")
+    gbps = rstats["survivor_bytes_read"] / reb_s / 1e9
+    log(phase, f"rebuild of shards {list(REBUILD_LOST)}: {reb_s:.3f} s = "
+               f"{gbps:.3f} GB/s of survivors read end to end on {card}; "
+               f"sha-identical")
+    return gbps
+
+
 def encode_and_rebuild(phase: str, base: str, geo: Geometry, coder,
                        workdir: str, card: str) -> tuple[list[str], dict]:
     dat_bytes = os.path.getsize(base + ".dat")
@@ -605,38 +673,29 @@ def encode_and_rebuild(phase: str, base: str, geo: Geometry, coder,
     ec_files.write_sorted_file_from_idx(base)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    hashes = shard_hashes(base, geo)
-    t0 = time.perf_counter()
-    oracle = cpu_oracle_hashes(base, geo, workdir)
-    oracle_s = time.perf_counter() - t0
-    if hashes != oracle:
-        bad = [i for i in range(geo.total_shards) if hashes[i] != oracle[i]]
-        raise AssertionError(f"{phase}: shards {bad} differ from the cpu coder")
+    hashes, oracle_s = check_shards(phase, base, geo, workdir)
     log(phase, f"encode of {dat_bytes} B: {enc_s:.3f} s = "
                f"{dat_bytes / enc_s / 1e9:.3f} GB/s end to end on {card} "
-               f"({stats.batches} slabs; reader: read {stats.read_s:.3f} s, "
-               f"encode calls {stats.dispatch_s:.3f} s; coordinator: device "
-               f"wait {stats.device_wait_s:.3f} s; writers: "
-               f"{stats.write_s:.3f} thread-s); 14 shard sha256s match the "
+               f"({encode_detail(stats)}); 14 shard sha256s match the "
                f"numpy cpu coder ({oracle_s:.1f} s)")
     for i in REBUILD_LOST:
         os.remove(geo.shard_file_name(base, i))
-    rstats: dict = {}
-    t0 = time.perf_counter()
-    rebuilt = ec_files.rebuild_ec_files(base, coder, geo, stats=rstats)
-    torch.cuda.synchronize()
-    reb_s = time.perf_counter() - t0
-    if tuple(rebuilt) != REBUILD_LOST:
-        raise AssertionError(f"{phase}: rebuilt {rebuilt}, not {REBUILD_LOST}")
-    after = shard_hashes(base, geo)
-    if after != hashes:
-        raise AssertionError(f"{phase}: rebuilt shards differ")
-    read_b = rstats["survivor_bytes_read"]
-    log(phase, f"rebuild of shards {list(REBUILD_LOST)}: {reb_s:.3f} s = "
-               f"{read_b / reb_s / 1e9:.3f} GB/s of survivors read end to end "
-               f"on {card}; sha-identical")
+    rebuild_gbps = rebuild_checked(phase, base, geo, coder, hashes, card)
     return hashes, dict(encode_gbps=dat_bytes / enc_s / 1e9,
-                        rebuild_gbps=read_b / reb_s / 1e9)
+                        rebuild_gbps=rebuild_gbps)
+
+
+def split_by_lost(geo: Geometry, est: int, extents, lost) -> tuple[list,
+                                                                  list]:
+    """(item, offset, length) extents of an EC volume of estimated .dat
+    size `est`, split into the items whose bytes lie on a shard in `lost`
+    and the rest; -> (touching, others)."""
+    touching, others = [], []
+    for item, off, length in extents:
+        ids = {iv.to_shard_id_and_offset(geo)[0]
+               for iv in locate_data(geo, est, off, length)}
+        (touching if ids & set(lost) else others).append(item)
+    return touching, others
 
 
 def degraded_reads(base: str, geo: Geometry, coder, needles,
@@ -644,14 +703,9 @@ def degraded_reads(base: str, geo: Geometry, coder, needles,
     os.remove(geo.shard_file_name(base, DEGRADED_SHARD))
     vol = EcVolume(base, coder, geo=geo)
     try:
-        est = vol.dat_size_estimate
-        touching = []
-        others = []
-        for nid, off, length in needles:
-            ids = {iv.to_shard_id_and_offset(geo)[0]
-                   for iv in locate_data(geo, est, off, length)}
-            (touching if DEGRADED_SHARD in ids else others).append(
-                (nid, off, length))
+        touching, others = split_by_lost(
+            geo, vol.dat_size_estimate,
+            ((n, n[1], n[2]) for n in needles), (DEGRADED_SHARD,))
         rng = np.random.default_rng(seed)
         extra = max(MIN_HEALTHY_READS, MIN_READS - len(touching))
         pick = rng.choice(len(others), size=min(len(others), extra),
@@ -734,6 +788,18 @@ def _lane_counts() -> dict:
             for lane in ("encode", "reconstruct")}
 
 
+def log_lanes(phase: str, spans) -> None:
+    """One line per (what, lane, before, after) span of _lane_counts():
+    slabs, batches, batch factor and mean queue wait on that lane."""
+    for what, lane, a, b in spans:
+        n_sl = b[lane][0] - a[lane][0]
+        n_b = b[lane][1] - a[lane][1]
+        wait = b[lane][2]["sum"] - a[lane][2]["sum"]
+        log(phase, f"{what}: {lane} lane {n_sl:.0f} slabs in {n_b:.0f} "
+                   f"batches, batch factor {n_sl / max(n_b, 1):.3f}, mean "
+                   f"queue wait {wait / max(n_sl, 1) * 1e3:.3f} ms")
+
+
 def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
                    card: str) -> dict:
     """BASELINE config #4: `n_volumes` volumes encoding at once on one
@@ -767,13 +833,9 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
         lanes1 = _lane_counts()
-        hashes = [shard_hashes(b, geo) for b in bases]
-        t0 = time.perf_counter()
-        for v, base in enumerate(bases):
-            if hashes[v] != cpu_oracle_hashes(base, geo, workdir):
-                raise AssertionError(f"{phase}: volume {v + 1}'s shards "
-                                     f"differ from the cpu coder")
-        oracle_s = time.perf_counter() - t0
+        checked = [check_shards(phase, b, geo, workdir) for b in bases]
+        hashes = [h for h, _ in checked]
+        oracle_s = sum(t for _, t in checked)
         tot = {f: sum(getattr(st, f) for st in enc_stats)
                for f in ("bytes", "batches", "wall_s", "read_s",
                          "dispatch_s", "device_wait_s", "write_s")}
@@ -827,20 +889,9 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
         enc_slabs = lanes1["encode"][0] - lanes0["encode"][0]
         enc_batches = lanes1["encode"][1] - lanes0["encode"][1]
         rec_batches = lanes3["reconstruct"][1] - lanes1["reconstruct"][1]
-        for lane, a, b, what in (("encode", lanes0, lanes1, "encode"),
-                                 ("reconstruct", lanes1, lanes2, "rebuild"),
-                                 ("reconstruct", lanes2, lanes3,
-                                  "degraded reads")):
-            slabs = a[lane][0], b[lane][0]
-            batches = a[lane][1], b[lane][1]
-            waits = a[lane][2], b[lane][2]
-            n_sl = slabs[1] - slabs[0]
-            n_b = batches[1] - batches[0]
-            wait = waits[1]["sum"] - waits[0]["sum"]
-            log(phase, f"{what}: {lane} lane {n_sl:.0f} slabs in "
-                       f"{n_b:.0f} batches, batch factor "
-                       f"{n_sl / max(n_b, 1):.3f}, mean queue wait "
-                       f"{wait / max(n_sl, 1) * 1e3:.3f} ms")
+        log_lanes(phase, (("encode", "encode", lanes0, lanes1),
+                          ("rebuild", "reconstruct", lanes1, lanes2),
+                          ("degraded reads", "reconstruct", lanes2, lanes3)))
         arena = ec_stats.ec_dispatch_stats()["arena"]
         log(phase, f"launches: {counts}; gf_xor by R: "
                    f"{dict(sorted(rs_xor.KERNEL.launches_by.items()))}; "
@@ -864,6 +915,194 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
                     batch_factor=enc_slabs / enc_batches)
     finally:
         shutil.rmtree(vdir)
+        os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
+
+
+# -- store --------------------------------------------------------------------
+
+
+STORE_VID = 7
+STORE_VOLUME_MB = 1024  # pipeline's size and needle mix, through the Store
+STORE_SAMPLE_READS = 500
+
+
+def _on_card(coder) -> None:
+    """The store's default coder must be the torch codec on the card."""
+    if not (isinstance(coder, RSCodecTorch) and coder.device.type == "cuda"):
+        raise AssertionError(f"store: the default coder is {coder!r}, not "
+                             f"RSCodecTorch on cuda")
+
+
+def _read_ec_needles(ev, needles, payload) -> float:
+    """Every (id, cookie, start, size) needle read back through the EC
+    volume as the server's EC read does it (find_needle, read_needle_blob,
+    Needle.from_bytes with the size the index holds, CRC checked),
+    byte-exact against the bytes written; -> seconds taken."""
+    t0 = time.perf_counter()
+    for nid, cookie, start, size in needles:
+        _, stored = ev.find_needle(nid)
+        n = Needle.from_bytes(ev.read_needle_blob(nid), ev.version,
+                              expected_size=stored)
+        if n.id != nid or n.cookie != cookie or \
+                n.data != payload[start:start + size]:
+            raise AssertionError(f"store: needle {nid} reads back wrong")
+    return time.perf_counter() - t0
+
+
+def store_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
+    """The volume server's Store on the card: needles in, ec.encode, reads
+    with 3 shards lost, rebuild, restart (see the module docstring)."""
+    phase = "store"
+    os.environ["SEAWEEDFS_TORCH_KERNEL"] = "xor"
+    sdir = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    store = None
+    try:
+        rng = np.random.default_rng(seed)
+        payload = rng.bytes(STORE_VOLUME_MB * MIB)
+        t0 = time.perf_counter()
+        crc_impl = crc.implementation()  # builds the native library
+        log(phase, f"crc32c implementation: {crc_impl} (ready in "
+                   f"{time.perf_counter() - t0:.2f} s)")
+        for spec in KERNELS.values():
+            spec["module"].KERNEL.reset()
+        lanes0 = _lane_counts()
+
+        store = Store([sdir], ip="127.0.0.1", port=8080)
+        _on_card(store.coder)
+        v = store.add_volume(STORE_VID)
+        needles = []
+        start = end = 0
+        t0 = time.perf_counter()
+        while end < STORE_VOLUME_MB * MIB:
+            size = int(rng.integers(1, 64 * 1024 + 1))
+            if start + size > len(payload):
+                start = 0
+            nid, cookie = len(needles) + 1, int(rng.integers(1, 1 << 32))
+            n = Needle.create(nid, cookie, payload[start:start + size])
+            off, _, unchanged = store.write_needle(STORE_VID, n)
+            if unchanged:
+                raise AssertionError(f"{phase}: needle {nid} deduplicated")
+            end = off + types.actual_size(n.size, v.version)
+            needles.append((nid, cookie, start, size))
+            start += size
+        write_s = time.perf_counter() - t0
+        dat_bytes = v.data_size()
+        log(phase, f"{len(needles)} needles of 1-64 KiB through "
+                   f"Store.write_needle: {dat_bytes} B of .dat in "
+                   f"{write_s:.3f} s = {dat_bytes / write_s / 1e9:.3f} GB/s "
+                   f"(one group-commit flush a write) on {card}")
+
+        # the ec.encode handlers, in order: VolumeMarkReadonly,
+        # VolumeEcShardsGenerate (+ its epilogue), VolumeEcShardsMount,
+        # VolumeDelete
+        geo = Geometry()
+        base = v.file_name()
+        v.read_only = True
+        coder = store.coder_for(geo)
+        if coder is not store.coder:
+            raise AssertionError(f"{phase}: coder_for(rs_10_4) is not the "
+                                 f"store's coder")
+        e0 = time.perf_counter()
+        enc = ec_files.write_ec_files(base, coder, geo)
+        torch.cuda.synchronize()
+        e1 = time.perf_counter()
+        ec_files.write_sorted_file_from_idx(base)
+        e2 = time.perf_counter()
+        save_volume_info(base, {
+            "version": v.version,
+            "dataShards": geo.data_shards, "parityShards": geo.parity_shards,
+            "largeBlock": geo.large_block, "smallBlock": geo.small_block,
+            "geometry": geo.code_name,
+        })
+        e3 = time.perf_counter()
+        enc_s = e3 - e0
+        lanes1 = _lane_counts()
+        hashes, oracle_s = check_shards(phase, base, geo, workdir)
+        store.mount_ec_shards(STORE_VID, "", list(range(geo.total_shards)))
+        store.delete_volume(STORE_VID)
+        if os.path.exists(base + ".dat") or os.path.exists(base + ".idx"):
+            raise AssertionError(f"{phase}: delete_volume left .dat/.idx")
+        log(phase, f"ec.encode of {dat_bytes} B through Store.coder_for: "
+                   f"{enc_s:.3f} s = {dat_bytes / enc_s / 1e9:.3f} GB/s end "
+                   f"to end on {card} (write_ec_files {e1 - e0:.3f} s: "
+                   f"{encode_detail(enc)}; write_sorted_file_from_idx "
+                   f"{e2 - e1:.3f} s; save_volume_info {e3 - e2:.3f} s); "
+                   f"14 shard sha256s match the numpy cpu coder "
+                   f"({oracle_s:.1f} s); mounted, plain volume deleted")
+
+        for i in REBUILD_LOST:
+            os.remove(geo.shard_file_name(base, i))
+        store.mount_ec_shards(STORE_VID, "", [])
+        ev = store.find_ec_volume(STORE_VID)
+        if sorted(ev.shard_files) != sorted(
+                set(range(geo.total_shards)) - set(REBUILD_LOST)):
+            raise AssertionError(f"{phase}: remount sees {sorted(ev.shard_files)}")
+        extents = []
+        for needle in needles:
+            off, size = ev.find_needle(needle[0])
+            extents.append((needle, off, types.actual_size(size, ev.version)))
+        degraded, healthy = split_by_lost(geo, ev.dat_size_estimate, extents,
+                                          REBUILD_LOST)
+        healthy_s = _read_ec_needles(ev, healthy, payload)
+        degraded_s = _read_ec_needles(ev, degraded, payload)
+        lanes2 = _lane_counts()
+        log(phase, f"{len(needles)} needles read through "
+                   f"Store.find_ec_volume with shards {list(REBUILD_LOST)} "
+                   f"lost, byte-exact, CRC verified: {len(healthy)} from "
+                   f"live shards in {healthy_s:.3f} s "
+                   f"({healthy_s / max(len(healthy), 1) * 1e3:.3f} ms "
+                   f"each), {len(degraded)} degraded in {degraded_s:.3f} s "
+                   f"({degraded_s / max(len(degraded), 1) * 1e3:.3f} ms "
+                   f"each), one reader")
+
+        rebuild_gbps = rebuild_checked(phase, base, geo, coder, hashes, card,
+                                       then=rebuild_ecx_file)
+        lanes3 = _lane_counts()
+        store.mount_ec_shards(STORE_VID, "", list(REBUILD_LOST))
+        log(phase, "rebuilt shards and .ecx remounted")
+
+        store.close()
+        store = None
+        if os.path.exists(recovery.marker_path(sdir)):
+            raise AssertionError(f"{phase}: close() left the dirty marker")
+        t0 = time.perf_counter()
+        store = Store([sdir], ip="127.0.0.1", port=8080)
+        _on_card(store.coder)
+        if store.recovery_report.unclean or store.find_volume(STORE_VID):
+            raise AssertionError(f"{phase}: restart saw an unclean store or "
+                                 f"the deleted plain volume")
+        ev = store.find_ec_volume(STORE_VID)
+        if ev is None or len(ev.shard_files) != geo.total_shards:
+            raise AssertionError(f"{phase}: restart did not reload the EC "
+                                 f"volume")
+        pick = np.random.default_rng(seed + 1).choice(
+            len(needles), size=min(len(needles), STORE_SAMPLE_READS),
+            replace=False)
+        _read_ec_needles(ev, [needles[i] for i in sorted(pick)], payload)
+        log(phase, f"restart: a new Store reloaded EC volume {STORE_VID} "
+                   f"(14 shards) in {time.perf_counter() - t0:.3f} s and "
+                   f"read {len(pick)} needles back byte-exact")
+        store.close()
+        store = None
+
+        counts = {k: spec["module"].KERNEL.launches
+                  for k, spec in KERNELS.items()}
+        log_lanes(phase, (("encode", "encode", lanes0, lanes1),
+                          ("degraded reads", "reconstruct", lanes1, lanes2),
+                          ("rebuild", "reconstruct", lanes2, lanes3)))
+        log(phase, f"launches: {counts}; gf_xor by R: "
+                   f"{dict(sorted(rs_xor.KERNEL.launches_by.items()))}; "
+                   f"crc32c {crc_impl}; nvidia-smi: {smi}")
+        if counts["gf_xor"] <= 0:
+            raise AssertionError(f"{phase}: gf_xor was never launched")
+        return dict(launches=counts["gf_xor"],
+                    write_gbps=dat_bytes / write_s / 1e9,
+                    encode_gbps=dat_bytes / enc_s / 1e9,
+                    rebuild_gbps=rebuild_gbps)
+    finally:
+        if store is not None:
+            store.close()
+        shutil.rmtree(sdir)
         os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
 
 
@@ -975,6 +1214,9 @@ def main(argv=None) -> int:
         paths["gf_sel"] = pipeline_sched(args.sched_volume_mb,
                                          args.sched_volumes, seed=3,
                                          workdir=args.workdir, card=card)
+    if "gf_xor" in names:
+        got = store_phase(seed=4, workdir=args.workdir, card=card, smi=smi)
+        paths["gf_xor"]["launches"] += got["launches"]
 
     rows = []
     for name, path in paths.items():

@@ -3,7 +3,7 @@ needle reads across shard files (with degraded-mode reconstruction).
 
 Counterpart of seaweedfs_tpu/storage/ec_volume.py (SeaweedFS's
 ec_volume.go SearchNeedleFromSortedIndex, ec_volume_delete.go
-DeleteNeedleFromEcx, store_ec.go ReadEcShardNeedle).
+DeleteNeedleFromEcx / RebuildEcxFile, store_ec.go ReadEcShardNeedle).
 A degraded read reconstructs through ops/dispatch.reconstruct_now, so
 concurrent degraded reads sharing a survivor set ride one stacked
 launch; shard files are read through a small mmap reader.
@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from ..ops import dispatch
+from ..utils import atomic_write
 from . import types
 from .ec_files import check_ecx_stride, to_host
 from .ec_locate import Geometry, locate_data
@@ -32,6 +33,13 @@ def load_volume_info(base_file_name: str) -> dict:
             return json.load(f)
     except (FileNotFoundError, ValueError):
         return {}
+
+
+def save_volume_info(base_file_name: str, info: dict) -> None:
+    # atomic + fsync'd: the .vif names the volume's code geometry — a
+    # crash mid-rewrite leaving a truncated file would refuse the whole
+    # volume at next mount
+    atomic_write.write_json_atomic(base_file_name + ".vif", info)
 
 
 def _read_at(f, offset: int, length: int) -> bytes:
@@ -102,6 +110,29 @@ def delete_needle_from_ecx(base_file_name: str, needle_id: int) -> None:
             return
     with open(base_file_name + ".ecj", "ab") as j:
         j.write(needle_id.to_bytes(8, "big"))
+
+
+def rebuild_ecx_file(base_file_name: str) -> None:
+    """Replay the .ecj journal into .ecx tombstones, then remove the
+    journal (RebuildEcxFile, ec_volume_delete.go:51-98)."""
+    ecj_path = base_file_name + ".ecj"
+    if not os.path.exists(ecj_path):
+        return
+    check_ecx_stride(base_file_name)  # tombstone replay writes in place
+    ecx_path = base_file_name + ".ecx"
+    ecx_size = os.path.getsize(ecx_path)
+    with open(ecx_path, "r+b") as ecx, open(ecj_path, "rb") as ecj:
+        while True:
+            buf = ecj.read(types.NEEDLE_ID_SIZE)
+            if len(buf) != types.NEEDLE_ID_SIZE:
+                break
+            nid = int.from_bytes(buf, "big")
+            try:
+                search_needle_from_sorted_index(ecx, ecx_size, nid,
+                                                mark_needle_deleted)
+            except NotFoundError:
+                pass
+    os.remove(ecj_path)
 
 
 class MmapShard:

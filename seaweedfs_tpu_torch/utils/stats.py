@@ -1,9 +1,12 @@
-"""Metrics of the EC dispatch plane: counters, gauges and histograms.
+"""Metrics of the EC dispatch plane and the volume store: counters,
+gauges and histograms.
 
-The part of seaweedfs_tpu/utils/stats.py that the dispatch scheduler
-reports into: the ``Counter``, ``Gauge`` and ``Histogram`` classes, the
-``EC_DISPATCH_*`` families and ``ec_dispatch_stats()``. Metric names
-match the reference's. The text exposition (``/metrics``), histogram
+The part of seaweedfs_tpu/utils/stats.py that the port reports into: the
+``Counter``, ``Gauge`` and ``Histogram`` classes, the ``EC_DISPATCH_*``
+families and ``ec_dispatch_stats()`` (dispatch scheduler), the
+``VOLUME_GROUP_COMMIT_*`` counters (storage/volume.py) and the
+``RECOVERY_*`` counters (storage/recovery.py). Metric names match the
+reference's. The text exposition (``/metrics``), histogram
 exemplars and the reconstructed-interval cache's counter wait for the
 server slice; here the values are read in process (``value``, ``split_by``,
 ``Histogram.snapshot``).
@@ -195,3 +198,47 @@ def ec_dispatch_stats() -> dict:
         "zeroFillElidedBytes": int(EC_DISPATCH_ZEROFILL_ELIDED.value()),
     }
     return out
+
+
+# -- volume write path: group commit (storage/volume.py) -------------------
+
+VOLUME_GROUP_COMMIT_WRITES = Counter(
+    "SeaweedFS_volumeServer_group_commit_writes",
+    "Needle writes acknowledged through the group-commit flush path.")
+VOLUME_GROUP_COMMIT_FLUSHES = Counter(
+    "SeaweedFS_volumeServer_group_commit_flushes",
+    "Batched dat+idx flushes; writes/flushes is the batching factor.")
+
+# -- crash-consistency recovery ladder (storage/recovery.py) ---------------
+
+RECOVERY_RUNS = Counter(
+    "SeaweedFS_recovery_runs",
+    "Store startups by outcome (clean/unclean/disabled) — unclean means "
+    "the dirty marker survived the previous process and the ladder ran.")
+RECOVERY_TRUNCATED_BYTES = Counter(
+    "SeaweedFS_recovery_dat_truncated_bytes",
+    "Torn .dat tail bytes truncated to the last CRC-valid record "
+    "boundary by the recovery ladder.")
+RECOVERY_IDX_DROPPED = Counter(
+    "SeaweedFS_recovery_idx_entries_dropped",
+    "Index suffix entries dropped because their records extend past the "
+    "durable .dat prefix (idx-never-ahead-of-dat reconcile).")
+RECOVERY_EC_QUARANTINED = Counter(
+    "SeaweedFS_recovery_ec_files_quarantined",
+    "Half-streamed EC shard/journal files moved to .swfs_quarantine "
+    "because their base never saw its .ecx commit.")
+RECOVERY_SIDECARS_DISCARDED = Counter(
+    "SeaweedFS_recovery_sidecars_discarded",
+    "Corrupt sidecars discarded at mount by kind "
+    "(vif/dig/scb/tier/incarnation) — each rebuilds on the next pass.")
+RECOVERY_TMP_SWEPT = Counter(
+    "SeaweedFS_recovery_tmp_files_swept",
+    "Orphaned atomic-write *.tmp files swept by the recovery ladder.")
+RECOVERY_VACUUM_RESOLVED = Counter(
+    "SeaweedFS_recovery_vacuum_resolved",
+    "Interrupted vacuum commits resolved at mount by action "
+    "(rollback/rollforward).")
+RECOVERY_SUSPECTS = Counter(
+    "SeaweedFS_recovery_suspects_queued",
+    "Volumes handed to Scrubber.report_suspect after the ladder touched "
+    "them — the fabric re-verifies and re-replicates from peers.")
