@@ -71,15 +71,36 @@ and prints no result without them. Phases, each printing its own line:
                      sha256s against the numpy cpu coder, rebuilt shards
                      sha-identical, reads byte-exact, the dirty marker
                      lifted by close()
+  8. server          the volume server as a process: `python3 -m
+                     seaweedfs_tpu_torch volume` with its default coder
+                     (cuda, K1) and an unreachable master; over gRPC
+                     AllocateVolume, 1 GiB of seeded 1-64 KiB needles
+                     POSTed over HTTP by 8 clients, VolumeMarkReadonly,
+                     VolumeEcShardsGenerate, VolumeUnmount and
+                     VolumeEcShardsMount; shards {0, 5, 13} unmounted,
+                     deleted and the rest remounted, every needle GET by 8
+                     readers (live and degraded timed apart);
+                     VolumeEcShardsRebuild; one byte of .ec03 flipped on
+                     disk, found and repaired by VolumeScrub (full,
+                     repair), a second pass clean, every needle GET again;
+                     SIGTERM. Shard sha256s against the numpy cpu coder,
+                     rebuilt and repaired shards sha-identical, GETs
+                     byte-exact, exit 0 with the dirty marker lifted; the
+                     server's /status (dispatch lanes) and /metrics (K1
+                     launches by R) show each step's EC work ran K1 on the
+                     card
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
-pipeline phases (a short loop for one kernel; K1's are pipeline and
-store); the run says what it skipped.
+pipeline phases (a short loop for one kernel; K1's are pipeline, store and
+server); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
-read just after; a kernel that path never launched fails the run (K1's
-count in the JSON line is the sum over its two phases). K1's launches are
-also split by R (1 or 2: degraded read, 3: rebuild, 4: encode). The
+read just after; a kernel that path never launched fails the run. The
+server phase's counts start at 0 with its process and are read from its
+/metrics before and after each step. K1's count in the JSON line is the sum
+over its three phases. K1's launches are also split by R (1 or 2: a
+degraded read through EcVolume, 4: a degraded GET through the server, 3:
+rebuild, 4: encode). The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -88,11 +109,14 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import http.client
 import json
 import mmap
 import os
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -105,13 +129,16 @@ import torch
 
 from seaweedfs_tpu_torch.models import geometry
 from seaweedfs_tpu_torch.models.coder import new_coder
-from seaweedfs_tpu_torch.ops import _build, gf256, gfmat, rs_bits, rs_sel, \
-    rs_xor
+from seaweedfs_tpu_torch.ops import _build, dispatch, gf256, gfmat, rs_bits, \
+    rs_sel, rs_xor
 from seaweedfs_tpu_torch.ops.rs_torch import RSCodecTorch
+from seaweedfs_tpu_torch.pb import ec_geometry_pb2, rpc, scrub_pb2
+from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs
 from seaweedfs_tpu_torch.storage import crc, ec_files, idx, recovery, types
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry, locate_data
 from seaweedfs_tpu_torch.storage.ec_volume import (EcVolume, rebuild_ecx_file,
                                                    save_volume_info)
+from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.utils import stats as ec_stats
@@ -145,11 +172,17 @@ DEGRADED_SHARD = 3
 # a degraded read's width: one interval of padded needle records, an
 # 8-byte multiple that is no 16-byte one
 DEGRADED_WIDTH = 24_584
+# the server's degraded GET: one block of its reconstructed-interval cache
+# (256 KiB), from its 10 planned survivors, solving
+# every row outside them (lost 0, 5 and 13, and unread 12)
+GET_WIDTH = dispatch.DEFAULT_CACHE_BLOCK
+GET_UNREAD = (0, 5, 12, 13)
 # (kernel, shape, matrix, B): the shapes the main path launches, timed
 TIMED_SHAPES = (
     ("gf_xor", "encode [4,10]", "encode", MIB),
     ("gf_xor", "rebuild [3,10]", "decode", MIB),
     ("gf_xor", "degraded read [1,10]", "degraded", DEGRADED_WIDTH),
+    ("gf_xor", "degraded GET [4,10]", "degraded GET", GET_WIDTH),
     ("gf_bits", "encode [4,10]", "encode", MIB),
     ("gf_bits", "rebuild [3,10]", "decode", MIB),
     ("gf_bits", "stacked flush [4,10]", "encode", STACKED_WIDTH),
@@ -165,7 +198,7 @@ _MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                 ("H200", 4.8e12), ("H100", 3.35e12))
 
 # the pipeline phases that drive each kernel
-PHASES = {"gf_xor": "pipeline and store", "gf_bits": "pipeline-bits",
+PHASES = {"gf_xor": "pipeline, store and server", "gf_bits": "pipeline-bits",
           "gf_sel": "pipeline-sched"}
 # each kernel: its module, operand form and the TPU kernel it replaces
 KERNELS = {
@@ -274,13 +307,15 @@ def _sm_clock() -> str:
 
 def _matrices() -> dict[str, np.ndarray]:
     """K1's and K2's matrices: the RS(10,4) encode, the fused decode of
-    the rebuild ([3, 10], shards REBUILD_LOST lost) and of a degraded read
-    ([1, 10], shard DEGRADED_SHARD lost)."""
+    the rebuild ([3, 10], shards REBUILD_LOST lost), of a degraded read
+    ([1, 10], shard DEGRADED_SHARD lost) and of the server's degraded GET
+    ([4, 10], the rows GET_UNREAD)."""
     def fused(lost):
         present = tuple(i for i in range(14) if i not in lost)
         return gfmat.fused_reconstruct_matrix(10, 4, present, lost)[0]
     return {"encode": gf256.parity_matrix(10, 4), "decode": fused(REBUILD_LOST),
-            "degraded": fused((DEGRADED_SHARD,))}
+            "degraded": fused((DEGRADED_SHARD,)),
+            "degraded GET": fused(GET_UNREAD)}
 
 
 def _check_equal(name: str, what: str, op, data) -> int:
@@ -1106,6 +1141,384 @@ def store_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
 
 
+# -- server -------------------------------------------------------------------
+
+
+SERVER_VID = 9
+SERVER_VOLUME_MB = 1024  # the store phase's size and needle mix, over HTTP
+SERVER_CLIENTS = 8  # writer threads, then reader threads
+SERVER_START_S = 120  # process start until /status answers
+SERVER_EC_TIMEOUT_S = 600  # the first EC RPC may build K1 (60-104 s of nvcc)
+SCRUB_FLIP_SHARD = 3
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_port_pair() -> int:
+    """A free HTTP port whose gRPC twin (+10000) is free too."""
+    for _ in range(200):
+        with socket.socket() as s:
+            s.bind(("", 0))
+            port = s.getsockname()[1]
+        if port + 10000 > 65535:
+            continue
+        with socket.socket() as s2:
+            try:
+                s2.bind(("", port + 10000))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port pair")
+
+
+def _http(conn, method: str, path: str, body: bytes | None = None):
+    """One request on a keep-alive connection -> (status, body)."""
+    conn.request(method, path, body=body)
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def _fid(nid: int, cookie: int) -> str:
+    return f"{SERVER_VID},{format_needle_id_cookie(nid, cookie)}"
+
+
+def _clients(port: int, work, items) -> list:
+    """work(conn, item) for every item, SERVER_CLIENTS threads with one
+    keep-alive connection each, items dealt round-robin; -> the results
+    in order. The first error raises."""
+    out = [None] * len(items)
+
+    def run(t):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            for i in range(t, len(items), SERVER_CLIENTS):
+                out[i] = work(conn, items[i])
+        finally:
+            conn.close()
+
+    _all_at_once(run, list(range(SERVER_CLIENTS)))
+    return out
+
+
+def _get_all(phase: str, port: int, needles, payload) -> list[float]:
+    """GET every (id, cookie, start, size) needle, byte-exact against the
+    bytes written; -> the seconds each GET took."""
+    def get(conn, needle):
+        nid, cookie, start, size = needle
+        t0 = time.perf_counter()
+        status, body = _http(conn, "GET", "/" + _fid(nid, cookie))
+        dt = time.perf_counter() - t0
+        if status != 200 or body != payload[start:start + size]:
+            raise AssertionError(f"{phase}: GET of needle {nid}: {status}, "
+                                 f"{len(body)} B, not the bytes written")
+        return dt
+
+    return _clients(port, get, needles)
+
+
+def _ms(xs: list[float]) -> str:
+    if not xs:
+        return "none"
+    q = statistics.quantiles(xs, n=100) if len(xs) > 1 else xs * 99
+    return (f"mean {statistics.fmean(xs) * 1e3:.3f} ms, p50 "
+            f"{q[49] * 1e3:.3f} ms, p99 {q[98] * 1e3:.3f} ms")
+
+
+def _status(port: int) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        status, body = _http(conn, "GET", "/status")
+    finally:
+        conn.close()
+    if status != 200:
+        raise AssertionError(f"server: /status answered {status}")
+    return json.loads(body)
+
+
+def _kernel_launches(port: int) -> dict:
+    """{(kernel, rows or ""): launches} from the server's /metrics."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        status, body = _http(conn, "GET", "/metrics")
+    finally:
+        conn.close()
+    if status != 200:
+        raise AssertionError(f"server: /metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        m = re.match(r'SeaweedFS_ec_kernel_launches\{kernel="(\w+)"'
+                     r'(?:,rows="(\d+)")?\} (\S+)$', line)
+        if m:
+            out[(m.group(1), m.group(2) or "")] = int(float(m.group(3)))
+    return out
+
+
+def _server_counts(port: int) -> dict:
+    """The server's own counters: K1 launches by R (/metrics) and the
+    dispatch lanes' slabs and batches (/status EcDispatch)."""
+    st = _status(port)["EcDispatch"]
+    by_r = {int(r): n for (k, r), n in _kernel_launches(port).items()
+            if k == "gf_xor" and r}
+    return dict(k1=by_r, dispatch=st,
+                lanes={lane: (st[lane]["slabs"], st[lane]["batches"])
+                       for lane in ("encode", "reconstruct")})
+
+
+def _server_step(phase: str, what: str, a: dict, b: dict) -> dict:
+    """Log and return what one step launched: K1 by R, lanes' slabs and
+    batches (after minus before)."""
+    k1 = {r: b["k1"].get(r, 0) - a["k1"].get(r, 0)
+          for r in sorted(set(a["k1"]) | set(b["k1"]))}
+    k1 = {r: n for r, n in k1.items() if n}
+    lanes = {lane: (b["lanes"][lane][0] - a["lanes"][lane][0],
+                    b["lanes"][lane][1] - a["lanes"][lane][1])
+             for lane in b["lanes"]}
+    log(phase, f"{what}: K1 launches by R {k1}; encode lane "
+               f"{lanes['encode'][0]} slabs in {lanes['encode'][1]} "
+               f"batches, reconstruct lane {lanes['reconstruct'][0]} slabs "
+               f"in {lanes['reconstruct'][1]} batches")
+    return dict(k1=k1, lanes=lanes)
+
+
+def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
+    """`python3 -m seaweedfs_tpu_torch volume` on the card, driven over
+    HTTP and gRPC (see the module docstring)."""
+    phase = "server"
+    sdir = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    vdir = os.path.join(sdir, "data")
+    os.mkdir(vdir)
+    port, nobody = _free_port_pair(), _free_port_pair()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SEAWEEDFS_TORCH_KERNEL", "SEAWEEDFS_TORCH_CODER")}
+    env["SWFS_SCRUB_MAX_MBPS"] = "0"  # unpaced scrub
+    cached = _build.library_path("gf_xor.cu").exists()
+    log_path = os.path.join(sdir, "server.log")
+    log_f = open(log_path, "wb")
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
+             "-dir", vdir, "-port", str(port),
+             "-mserver", f"localhost:{nobody}"],
+            cwd=HERE, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"{phase}: the server exited with "
+                                     f"{proc.returncode} at start")
+            try:
+                _status(port)
+                break
+            except OSError:
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    raise
+                time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        rpc.reset_channels()  # no channel dialled before the listener
+        stub = rpc.volume_stub(rpc.grpc_address(f"localhost:{port}"))
+        log(phase, f"python3 -m seaweedfs_tpu_torch volume (default coder, "
+                   f"master localhost:{nobody} unreachable) answered "
+                   f"/status in {start_s:.2f} s; K1's library was "
+                   f"{'already built' if cached else 'not built yet'}")
+        stub.AllocateVolume(vs.AllocateVolumeRequest(
+            volume_id=SERVER_VID, replication="000"), timeout=60)
+
+        rng = np.random.default_rng(seed)
+        payload = rng.bytes(SERVER_VOLUME_MB * MIB)
+        needles = []
+        start = total = 0
+        while total < SERVER_VOLUME_MB * MIB:
+            size = int(rng.integers(1, 64 * 1024 + 1))
+            if start + size > len(payload):
+                start = 0
+            needles.append((len(needles) + 1, int(rng.integers(1, 1 << 32)),
+                            start, size))
+            start += size
+            total += size
+
+        def post(conn, needle):
+            nid, cookie, begin, size = needle
+            status, body = _http(conn, "POST", "/" + _fid(nid, cookie),
+                                 payload[begin:begin + size])
+            if status != 201:
+                raise AssertionError(f"{phase}: POST of needle {nid}: "
+                                     f"{status} {body[:200]!r}")
+
+        t0 = time.perf_counter()
+        _clients(port, post, needles)
+        write_s = time.perf_counter() - t0
+        dat_bytes = stub.VolumeStatus(vs.VolumeStatusRequest(
+            volume_id=SERVER_VID), timeout=60).volume_size
+        log(phase, f"{len(needles)} needles ({total} B of 1-64 KiB) POSTed "
+                   f"by {SERVER_CLIENTS} clients: {dat_bytes} B of .dat in "
+                   f"{write_s:.3f} s = {total / write_s / 1e9:.3f} GB/s of "
+                   f"needle bytes on {card}")
+
+        # ec.encode: read-only, generate, unmount the plain volume, mount
+        # the 14 shards
+        geo = Geometry()
+        base = os.path.join(vdir, str(SERVER_VID))
+        c0 = _server_counts(port)
+        stub.VolumeMarkReadonly(vs.VolumeMarkReadonlyRequest(
+            volume_id=SERVER_VID), timeout=60)
+        t0 = time.perf_counter()
+        stub.VolumeEcShardsGenerate(ec_geometry_pb2.EcGenerateRequest(
+            volume_id=SERVER_VID), timeout=SERVER_EC_TIMEOUT_S)
+        enc_s = time.perf_counter() - t0
+        stub.VolumeUnmount(vs.VolumeUnmountRequest(volume_id=SERVER_VID),
+                           timeout=60)
+        stub.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=SERVER_VID, shard_ids=list(range(geo.total_shards))),
+            timeout=60)
+        hashes, oracle_s = check_shards(phase, base, geo, workdir)
+        c1 = _server_counts(port)
+        log(phase, f"VolumeEcShardsGenerate of {dat_bytes} B: {enc_s:.3f} s "
+                   f"= {dat_bytes / enc_s / 1e9:.3f} GB/s on {card}; 14 "
+                   f"shard sha256s match the numpy cpu coder "
+                   f"({oracle_s:.1f} s); 14 shards mounted")
+
+        # 3 shards lost: every needle by GET, live and degraded apart
+        stub.VolumeEcShardsUnmount(vs.VolumeEcShardsUnmountRequest(
+            volume_id=SERVER_VID, shard_ids=list(REBUILD_LOST)), timeout=60)
+        stub.VolumeEcShardsDelete(vs.VolumeEcShardsDeleteRequest(
+            volume_id=SERVER_VID, shard_ids=list(REBUILD_LOST)), timeout=60)
+        survivors = [i for i in range(geo.total_shards)
+                     if i not in REBUILD_LOST]
+        stub.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=SERVER_VID, shard_ids=survivors), timeout=60)
+        ev = EcVolume(base, new_coder(backend="cpu"), geo=geo)
+        try:
+            extents = []
+            for needle in needles:
+                off, size = ev.find_needle(needle[0])
+                extents.append((needle, off,
+                                types.actual_size(size, ev.version)))
+            degraded, live = split_by_lost(geo, ev.dat_size_estimate,
+                                           extents, REBUILD_LOST)
+        finally:
+            ev.close()
+        c2 = _server_counts(port)
+        live_ms = _get_all(phase, port, live, payload)
+        degraded_ms = _get_all(phase, port, degraded, payload)
+        c3 = _server_counts(port)
+        log(phase, f"shards {list(REBUILD_LOST)} unmounted and deleted, "
+                   f"{len(survivors)} remounted; every needle GET "
+                   f"byte-exact by {SERVER_CLIENTS} readers: {len(live)} "
+                   f"live ({_ms(live_ms)}), {len(degraded)} degraded "
+                   f"({_ms(degraded_ms)})")
+
+        t0 = time.perf_counter()
+        reb = stub.VolumeEcShardsRebuild(ec_geometry_pb2.EcRebuildRequest(
+            volume_id=SERVER_VID), timeout=SERVER_EC_TIMEOUT_S)
+        reb_s = time.perf_counter() - t0
+        if tuple(reb.rebuilt_shard_ids) != REBUILD_LOST:
+            raise AssertionError(f"{phase}: rebuilt "
+                                 f"{list(reb.rebuilt_shard_ids)}")
+        stub.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=SERVER_VID, shard_ids=list(REBUILD_LOST)), timeout=60)
+        if shard_hashes(base, geo) != hashes:
+            raise AssertionError(f"{phase}: rebuilt shards differ")
+        c4 = _server_counts(port)
+        rebuild_gbps = reb.survivor_bytes_read / reb_s / 1e9
+        log(phase, f"VolumeEcShardsRebuild of {list(REBUILD_LOST)}: "
+                   f"{reb_s:.3f} s = {rebuild_gbps:.3f} GB/s of survivors "
+                   f"read ({reb.survivor_bytes_read} B) on {card}; "
+                   f"sha-identical, remounted")
+
+        # one byte flipped in .ec03 on disk: the scrub finds and repairs it
+        path = geo.shard_file_name(base, SCRUB_FLIP_SHARD)
+        flip_at = os.path.getsize(path) // 2 + 12345
+        with open(path, "r+b") as f:
+            f.seek(flip_at)
+            b = f.read(1)
+            f.seek(flip_at)
+            f.write(bytes([b[0] ^ 0x5A]))
+        t0 = time.perf_counter()
+        first = stub.VolumeScrub(scrub_pb2.VolumeScrubRequest(
+            volume_id=SERVER_VID, full=True, repair=True),
+            timeout=SERVER_EC_TIMEOUT_S)
+        scrub_s = time.perf_counter() - t0
+        found = [(f.kind, f.state, f.shard_id) for f in first.findings]
+        if found != [("ec_parity", "repaired", SCRUB_FLIP_SHARD)]:
+            raise AssertionError(f"{phase}: scrub found {found}")
+        second = stub.VolumeScrub(scrub_pb2.VolumeScrubRequest(
+            volume_id=SERVER_VID, full=True, repair=True),
+            timeout=SERVER_EC_TIMEOUT_S)
+        if list(second.findings):
+            raise AssertionError(f"{phase}: a second scrub found "
+                                 f"{list(second.findings)}")
+        if shard_hashes(base, geo) != hashes:
+            raise AssertionError(f"{phase}: repaired shards differ")
+        c5 = _server_counts(port)
+        again = _get_all(phase, port, needles, payload)
+        log(phase, f"byte {flip_at} of .ec{SCRUB_FLIP_SHARD:02d} flipped: "
+                   f"VolumeScrub (full, repair) found one ec_parity "
+                   f"finding on shard {SCRUB_FLIP_SHARD}, repaired, in "
+                   f"{scrub_s:.3f} s ({first.bytes_verified} B verified); "
+                   f"a second pass found none; shards sha-identical; every "
+                   f"needle GET byte-exact again ({_ms(again)})")
+
+        # each step's launches, from the server's own counters: every
+        # batch of the lanes it used ran K1 on the card. A degraded GET
+        # reconstructs every row outside its 10 planned survivors, as the
+        # reference server does, so K1 runs there at R = 4.
+        steps = [_server_step(phase, what, a, b) for what, a, b in (
+            ("VolumeEcShardsGenerate", c0, c1), ("GETs", c2, c3),
+            ("VolumeEcShardsRebuild", c3, c4), ("VolumeScrub x2", c4, c5))]
+        st = c5["dispatch"]
+        log(phase, f"/status EcDispatch: encode {st['encode']}, reconstruct "
+                   f"{st['reconstruct']}, reasons {st['reasons']}, perChip "
+                   f"{st['perChip']}, reconCache {st['reconCache']}")
+        if set(st["reasons"]) != {"singleDevice"}:
+            raise AssertionError(f"{phase}: EC work ran off the card's "
+                                 f"lanes: {st['reasons']}")
+        enc, gets, reb, scrub = steps
+        for what, step, lane in (("encode", enc, "encode"),
+                                 ("degraded GETs", gets, "reconstruct"),
+                                 ("rebuild", reb, "reconstruct"),
+                                 ("scrub", scrub, "encode")):
+            launched = sum(step["k1"].values())
+            if not launched or launched < step["lanes"][lane][1]:
+                raise AssertionError(f"{phase}: {what} launched K1 {launched}"
+                                     f" times for {step['lanes'][lane][1]} "
+                                     f"{lane} batches")
+        if not (enc["k1"].get(4) and reb["k1"].get(3)):
+            raise AssertionError(f"{phase}: K1 did not encode at R = 4 and "
+                                 f"rebuild at R = 3: {steps}")
+        by_r = c5["k1"]
+
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"{phase}: the server exited {rc} on "
+                                 f"SIGTERM")
+        if os.path.exists(recovery.marker_path(vdir)):
+            raise AssertionError(f"{phase}: the dirty marker was not lifted")
+        proc = None
+        gets = live_ms + degraded_ms
+        log(phase, f"SIGTERM: exit 0, dirty marker lifted. write "
+                   f"{total / write_s / 1e9:.3f} GB/s, encode "
+                   f"{dat_bytes / enc_s / 1e9:.3f} GB/s, rebuild "
+                   f"{rebuild_gbps:.3f} GB/s, GET live "
+                   f"{statistics.fmean(live_ms) * 1e3:.3f} ms, degraded "
+                   f"{statistics.fmean(degraded_ms) * 1e3:.3f} ms "
+                   f"({len(gets)} GETs); gf_xor by R {dict(sorted(by_r.items()))}; "
+                   f"nvidia-smi: {smi}")
+        return dict(launches=sum(by_r.values()))
+    except BaseException:
+        log_f.flush()
+        with open(log_path, "rb") as f:
+            tail = f.read()[-4000:].decode(errors="replace")
+        log(phase, f"server log tail:\n{tail}")
+        raise
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+        rpc.reset_channels()
+        shutil.rmtree(sdir)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1216,6 +1629,8 @@ def main(argv=None) -> int:
                                          workdir=args.workdir, card=card)
     if "gf_xor" in names:
         got = store_phase(seed=4, workdir=args.workdir, card=card, smi=smi)
+        paths["gf_xor"]["launches"] += got["launches"]
+        got = server_phase(seed=5, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
 
     rows = []

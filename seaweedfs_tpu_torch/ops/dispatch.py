@@ -73,6 +73,7 @@ from ..utils.stats import (
     EC_DISPATCH_STACK_SLABS,
     EC_DISPATCH_WINDOW_WAIT,
     EC_DISPATCH_ZEROFILL_ELIDED,
+    EC_RECON_CACHE_COUNTER,
 )
 
 DEFAULT_WINDOW_MS = 2.0
@@ -757,6 +758,15 @@ class EcDispatchScheduler:
         """Live arena snapshot."""
         return self._arena.stats()
 
+    def chip_depths(self) -> dict[str, int]:
+        """Queued slabs per chip lane — the per-chip depth surfaced in
+        the volume server's /status. Every lane of this scheduler runs on
+        the coder's one device, so the one key is "-"."""
+        with self._cv:
+            if not self._lanes:
+                return {}
+            return {_NO_CHIP: sum(len(lane) for lane in self._lanes.values())}
+
     def close(self) -> None:
         """Drain pending lanes, then stop + join the flusher thread.
 
@@ -776,3 +786,100 @@ class EcDispatchScheduler:
             t.join(timeout=5)
         self._arena.close()
 
+
+# -- reconstructed-interval cache ---------------------------------------------
+
+DEFAULT_CACHE_BLOCK = 256 * 1024  # the reference's own EC buffer size
+DEFAULT_CACHE_MB = 32
+
+
+class ReconstructIntervalCache:
+    """Bounded LRU of reconstructed shard blocks.
+
+    Key: (vid, shard_id, block_index) over fixed-size blocks of the
+    shard's byte space — a hot lost shard pays the k-survivor fetch +
+    dispatch once per block, and every later degraded read of any needle
+    in that block is served from memory. MUST be invalidated whenever a
+    shard's backing files can change: mount/unmount/delete
+    (server/volume.py wires those)."""
+
+    def __init__(self, max_bytes: int | None = None,
+                 block_size: int | None = None):
+        if max_bytes is None:
+            max_bytes = int(float(os.environ.get(
+                "SWFS_EC_RECON_CACHE_MB", str(DEFAULT_CACHE_MB)))
+                * 1024 * 1024)
+        if block_size is None:
+            block_size = int(os.environ.get("SWFS_EC_RECON_CACHE_BLOCK",
+                                            str(DEFAULT_CACHE_BLOCK)))
+        self.max_bytes = max_bytes
+        self.block_size = max(1, block_size)
+        self._entries: "OrderedDict[tuple, bytes]" = OrderedDict()
+        self._bytes = 0
+        # per-vid invalidation generation: a put computed from shard
+        # state observed BEFORE an invalidate must not repopulate the
+        # cache after it (reconstruct-vs-remount TOCTOU)
+        self._gens: dict[int, int] = {}
+        self._lock = locks.wlock("dispatch.recon_cache", rank=810)
+
+    def enabled(self) -> bool:
+        return self.max_bytes > 0
+
+    def blocks_for(self, offset: int, size: int) -> range:
+        """Block indices covering [offset, offset+size)."""
+        if size <= 0:
+            return range(0)
+        return range(offset // self.block_size,
+                     (offset + size - 1) // self.block_size + 1)
+
+    def get(self, vid: int, sid: int, block: int) -> bytes | None:
+        with self._lock:
+            got = self._entries.get((vid, sid, block))
+            if got is not None:
+                self._entries.move_to_end((vid, sid, block))
+        EC_RECON_CACHE_COUNTER.inc(result="hit" if got is not None
+                                   else "miss")
+        return got
+
+    def generation(self, vid: int) -> int:
+        """Snapshot BEFORE gathering survivors; pass to put() so a
+        reconstruct that straddles an invalidate can't repopulate the
+        cache with pre-invalidation shard bytes."""
+        with self._lock:
+            return self._gens.get(vid, 0)
+
+    def put(self, vid: int, sid: int, block: int, data: bytes,
+            gen: int | None = None) -> None:
+        if not self.enabled() or len(data) > self.max_bytes:
+            return
+        key = (vid, sid, block)
+        with self._lock:
+            if gen is not None and self._gens.get(vid, 0) != gen:
+                return  # invalidated while we were reconstructing
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= len(old)
+            self._entries[key] = data
+            self._bytes += len(data)
+            while self._bytes > self.max_bytes and self._entries:
+                _, evicted = self._entries.popitem(last=False)
+                self._bytes -= len(evicted)
+                EC_RECON_CACHE_COUNTER.inc(result="evict")
+        EC_RECON_CACHE_COUNTER.inc(result="put")
+
+    def invalidate(self, vid: int, sid: int | None = None) -> int:
+        """Drop every block of `vid` (optionally one shard). Returns the
+        number of entries dropped."""
+        with self._lock:
+            self._gens[vid] = self._gens.get(vid, 0) + 1
+            doomed = [k for k in self._entries
+                      if k[0] == vid and (sid is None or k[1] == sid)]
+            for k in doomed:
+                self._bytes -= len(self._entries.pop(k))
+        if doomed:
+            EC_RECON_CACHE_COUNTER.inc(len(doomed), result="invalidate")
+        return len(doomed)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)

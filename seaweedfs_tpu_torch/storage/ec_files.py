@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..ops import dispatch
+from . import idx as idx_mod
 from . import needle_map, types
 from .ec_locate import Geometry
 
@@ -64,6 +65,16 @@ class EncodeStats:
     write_s: float = 0.0  # SUM across all shard-writer threads
     started: float = field(default_factory=time.perf_counter)
     ended: float = 0.0
+
+    @property
+    def overlap_ratio(self) -> float:
+        """(read + dispatch + device-wait + write) / wall — >1 proves the
+        phases ran concurrently (a serial loop is exactly 1.0)."""
+        if self.wall_s <= 0:
+            return 0.0
+        return (
+            self.read_s + self.dispatch_s + self.device_wait_s + self.write_s
+        ) / self.wall_s
 
 
 def _writer_thread_count(n_files: int) -> int:
@@ -217,6 +228,7 @@ def generate_ec_files(
     geo: Geometry = Geometry(),
     batch_size: int = DEFAULT_BATCH_SIZE,
     pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
+    pace=None,
 ) -> EncodeStats:
     """<base>.dat -> <base>.ec00..ecNN.
 
@@ -236,6 +248,11 @@ def generate_ec_files(
     so the card never reads a recycled buffer. Volumes encoding
     concurrently through one coder each run their own pipeline; their
     slabs meet in the scheduler's encode lane and share launches.
+
+    `pace` (qos/priority.py BackgroundGovernor.pacer) is called with each
+    slab's data-byte count before the slab's rows are routed to writers;
+    it may block (waiting on cluster tokens) or raise (QosUnavailable
+    mid-job) — the pipeline aborts cleanly either way.
     """
     k, m = geo.data_shards, geo.parity_shards
     dat_path = base_file_name + ".dat"
@@ -304,6 +321,11 @@ def generate_ec_files(
             if isinstance(item, BaseException):
                 raise item
             buf, data, parity_fut, nbytes = item
+            if pace is not None:
+                # cluster-budget draw, one slab at a time: may block on
+                # higher-priority demand; a raise aborts the pipeline
+                # through the normal failure path below
+                pace(k * nbytes)
             release = _Countdown(k, lambda b=buf: free_q.put(b))
             for i in range(k):
                 writers.put(i, data[i], nbytes, release)
@@ -338,9 +360,9 @@ def generate_ec_files(
 
 
 def write_ec_files(base_file_name: str, coder,
-                   geo: Geometry = Geometry()) -> EncodeStats:
+                   geo: Geometry = Geometry(), pace=None) -> EncodeStats:
     """WriteEcFiles equivalent."""
-    return generate_ec_files(base_file_name, coder, geo)
+    return generate_ec_files(base_file_name, coder, geo, pace=pace)
 
 
 def write_ecx_stride_marker(base_file_name: str) -> None:
@@ -385,6 +407,7 @@ def rebuild_ec_files(
     coder,
     geo: Geometry = Geometry(),
     batch_size: int = DEFAULT_BATCH_SIZE,
+    pace=None,
     want: list[int] | None = None,
     stats: dict | None = None,
 ) -> list[int]:
@@ -396,6 +419,8 @@ def rebuild_ec_files(
     group reads its 5 group peers; RS reads exactly its first-k decode
     set. `want` restricts the rebuild to those shard ids; `stats`, when
     given, receives survivor_bytes_read / survivor_shards / geometry.
+    `pace`, as in generate_ec_files, draws each slab's survivor-read bytes
+    from the cluster background budget before the slab is written.
     `coder` must expose reconstruct_stacked(present_ids, stacked, want=)."""
     total = geo.total_shards
     have = [os.path.exists(geo.shard_file_name(base_file_name, i))
@@ -487,6 +512,9 @@ def rebuild_ec_files(
                 item = item.result()
             mids, rows = item
             rows = to_host(rows)  # waits for the device
+            if pace is not None:
+                # repair-class budget draw: the survivors read this slab
+                pace(len(reads) * rows.shape[1])
             if stats is not None:
                 stats["survivor_bytes_read"] += len(reads) * rows.shape[1]
             for j, i in enumerate(mids):
@@ -508,3 +536,82 @@ def rebuild_ec_files(
         for f in outs.values():
             f.close()
     return missing
+
+
+def find_dat_file_size(
+    base_file_name: str,
+    version: int = types.CURRENT_VERSION,
+) -> int:
+    """True .dat length = max(offset + actual_size) over live .ecx entries
+    (FindDatFileSize, ec_decoder.go:48-70)."""
+    check_ecx_stride(base_file_name)
+    dat_size = 0
+    ids, offs, sizes = idx_mod.read_index_file(base_file_name + ".ecx")
+    for i in range(len(ids)):
+        size = int(sizes[i])
+        if types.size_is_deleted(size):
+            continue
+        entry_stop = types.stored_to_actual_offset(int(offs[i])) + types.actual_size(
+            size, version
+        )
+        dat_size = max(dat_size, entry_stop)
+    return dat_size
+
+
+def write_dat_file(
+    base_file_name: str,
+    dat_file_size: int,
+    geo: Geometry = Geometry(),
+    shard_file_names: list[str] | None = None,
+) -> None:
+    """Re-interleave data shards .ec00..ec<k-1> into <base>.dat
+    (WriteDatFile, ec_decoder.go:153-201). Note the reference's large-row
+    loop here is `>=` where the encoder's is strict `>` — replicated as-is,
+    quirk included."""
+    k = geo.data_shards
+    names = shard_file_names or [geo.shard_file_name(base_file_name, i) for i in range(k)]
+    types.write_stride_marker(base_file_name)
+    ins = [open(names[i], "rb") for i in range(k)]
+    try:
+        with open(base_file_name + ".dat", "wb") as out:
+            remaining = dat_file_size
+            while remaining >= k * geo.large_block:
+                for i in range(k):
+                    chunk = ins[i].read(geo.large_block)
+                    if len(chunk) != geo.large_block:
+                        raise IOError(f"short large block from {names[i]}")
+                    out.write(chunk)
+                    remaining -= geo.large_block
+            while remaining > 0:
+                for i in range(k):
+                    take = min(remaining, geo.small_block)
+                    if take <= 0:
+                        break
+                    chunk = ins[i].read(take)
+                    if len(chunk) != take:
+                        raise IOError(f"short small block from {names[i]}")
+                    out.write(chunk)
+                    remaining -= take
+    finally:
+        for f in ins:
+            f.close()
+
+
+def write_idx_file_from_ec_index(base_file_name: str) -> None:
+    """Reconstruct <base>.idx from .ecx + .ecj tombstones
+    (WriteIdxFileFromEcIndex, ec_decoder.go:18-43): copy .ecx, then append a
+    tombstone entry per journaled deletion."""
+    check_ecx_stride(base_file_name)  # .idx inherits the .ecx entry bytes
+    ecx = base_file_name + ".ecx"
+    with open(ecx, "rb") as f:
+        payload = f.read()
+    extra = b""
+    ecj = base_file_name + ".ecj"
+    if os.path.exists(ecj):
+        with open(ecj, "rb") as f:
+            j = f.read()
+        for i in range(0, len(j) - 7, types.NEEDLE_ID_SIZE):
+            nid = int.from_bytes(j[i : i + 8], "big")
+            extra += types.pack_needle_map_entry(nid, 0, types.TOMBSTONE_FILE_SIZE)
+    with open(base_file_name + ".idx", "wb") as f:
+        f.write(payload + extra)

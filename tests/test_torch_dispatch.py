@@ -618,6 +618,7 @@ def test_numa_pinning_gate(monkeypatch):
 
 def test_trace_spans_nest_mark_errors_and_gate(monkeypatch):
     monkeypatch.delenv("SWFS_TRACE", raising=False)
+    trace.refresh_config()  # the plane re-reads its env every 0.25 s
     with trace.span("outer", a=1) as outer:
         with trace.span("inner") as inner:
             assert trace.current() is inner
@@ -631,6 +632,11 @@ def test_trace_spans_nest_mark_errors_and_gate(monkeypatch):
             raise ValueError("x")
     assert bad.error == "ValueError: x"
     monkeypatch.setenv("SWFS_TRACE", "0")
-    with trace.span("off") as off:
-        off.set_attr(ignored=True)
-        assert trace.current() is None
+    trace.refresh_config()
+    try:
+        with trace.span("off") as off:
+            off.set_attr(ignored=True)
+            assert trace.current() is None
+    finally:
+        monkeypatch.delenv("SWFS_TRACE")
+        trace.refresh_config()

@@ -1,0 +1,672 @@
+"""The port's volume server against the JAX package's, on the CPU.
+
+Each case runs the reference VolumeServer (numpy coder) and the port's
+(RSCodecTorch on the CPU, so K1, K2 or K3's plain version does the
+products, as SEAWEEDFS_TORCH_KERNEL selects) over the same seeded needles,
+for rs_10_4 and lrc_10_2_2, one after the other on the same address, with
+the same pinned clock in both packages' needle modules. The lifecycle is
+the operator's: needles POSTed over HTTP, then over gRPC
+VolumeMarkReadonly, VolumeEcShardsGenerate, VolumeEcShardsMount,
+VolumeDelete, three shards unmounted, deleted and the rest remounted,
+GETs (whole, Range, and 404 after VolumeEcBlobDelete), then
+VolumeEcShardsRebuild, a byte flipped in .ec03 that VolumeScrub finds and
+repairs, a clean stop, and VolumeEcShardsToVolume after a restart. Files
+must be byte-identical and responses equal (tolerance 0: GF arithmetic is
+exact). Each package's server also opens the other's directories. The
+deferred RPCs answer UNIMPLEMENTED; `python -m seaweedfs_tpu_torch volume
+-coder cpu` serves as a process without JAX; both packages' protobuf
+files live in one process."""
+
+import hashlib
+import http.client
+import os
+import random
+import shutil
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import grpc
+import numpy as np
+import pytest
+import torch
+
+from seaweedfs_tpu.models.coder import new_coder as ref_new_coder
+from seaweedfs_tpu.pb import ec_geometry_pb2 as ref_eg
+from seaweedfs_tpu.pb import rpc as ref_rpc
+from seaweedfs_tpu.pb import scrub_pb2 as ref_scrub_pb2
+from seaweedfs_tpu.pb import volume_server_pb2 as ref_vs
+from seaweedfs_tpu.server import volume as ref_volume
+from seaweedfs_tpu.storage import needle as ref_needle
+from seaweedfs_tpu.storage.ec_locate import Geometry as RefGeometry
+from seaweedfs_tpu_torch.ops.rs_torch import RSCodecTorch
+from seaweedfs_tpu_torch.pb import ec_geometry_pb2 as eg
+from seaweedfs_tpu_torch.pb import rpc
+from seaweedfs_tpu_torch.pb import scrub_pb2
+from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs
+from seaweedfs_tpu_torch.server import volume as port_volume
+from seaweedfs_tpu_torch.storage import needle, recovery
+from seaweedfs_tpu_torch.storage.ec_locate import Geometry
+from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+from seaweedfs_tpu_torch.utils import locks
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LARGE, SMALL = 10000, 100
+VID = 5
+N_NEEDLES = 48
+LOST = (0, 5, 13)
+BLOB_DELETED = 7
+FLIP_SHARD, FLIP_AT = 3, 1000
+CODES = ("rs_10_4", "lrc_10_2_2")
+KINDS = ("xor", "bits", "sel")
+
+REF = dict(volume=ref_volume, rpc=ref_rpc, vs=ref_vs, eg=ref_eg,
+           scrub_pb2=ref_scrub_pb2, Geometry=RefGeometry)
+PORT = dict(volume=port_volume, rpc=rpc, vs=vs, eg=eg, scrub_pb2=scrub_pb2,
+            Geometry=Geometry)
+
+
+class Clock:
+    """A stand-in for the `time` module a needle module reads."""
+
+    def __init__(self):
+        self.ns = 1_700_000_000_000_000_000
+
+    def time_ns(self) -> int:
+        self.ns += 1000
+        return self.ns
+
+    def time(self) -> float:
+        return 1_700_000_100.0
+
+
+_PORTS = random.Random(os.getpid())
+
+
+def _free_port_pair() -> int:
+    """A free HTTP port and its gRPC twin (+10000), both below the
+    kernel's ephemeral range: the servers here stop and start again on one
+    address, and no client socket may take the port in between."""
+    for _ in range(200):
+        port = _PORTS.randrange(12000, 22000)
+        try:
+            for p in (port, port + 10000):
+                with socket.socket() as s:
+                    s.bind(("", p))
+        except OSError:
+            continue
+        return port
+    raise RuntimeError("no free port pair")
+
+
+PORT_NO = _free_port_pair()  # every lifecycle serves on this one address
+NOBODY = _free_port_pair()  # the master address: nothing listens there
+while NOBODY == PORT_NO:
+    NOBODY = _free_port_pair()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _needles() -> list[tuple]:
+    """Seeded (id, cookie, data, content type) of 1 B - 64 KiB."""
+    rng = np.random.default_rng(29)
+    out = []
+    for i in range(1, N_NEEDLES + 1):
+        data = rng.integers(0, 256, int(rng.integers(1, 64 * 1024)),
+                            dtype=np.uint8).tobytes()
+        ctype = "text/plain" if i % 4 == 0 else None
+        out.append((i, int(rng.integers(1, 1 << 32)), data, ctype))
+    return out
+
+
+NEEDLES = _needles()
+
+
+def _fid(nid: int, cookie: int) -> str:
+    return f"{VID},{format_needle_id_cookie(nid, cookie)}"
+
+
+_CONNS: dict = {}
+
+
+def _request(method, path, body=None, headers=None, port=PORT_NO):
+    """One request on a keep-alive connection per port (a fresh one for
+    every request would churn the ephemeral ports other tests bind)."""
+    conn = _CONNS.get(port)
+    if conn is None:
+        conn = _CONNS[port] = http.client.HTTPConnection("127.0.0.1", port,
+                                                         timeout=60)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    except BaseException:
+        _drop_conn(port)
+        raise
+
+
+def _drop_conn(port: int) -> None:
+    conn = _CONNS.pop(port, None)
+    if conn is not None:
+        conn.close()
+
+
+def _response(method, path, headers=None) -> tuple:
+    status, hdrs, body = _request(method, path, headers=headers)
+    return (status, body, hdrs.get("ETag"), hdrs.get("Content-Length"),
+            hdrs.get("Content-Range"), hdrs.get("Content-Type"))
+
+
+class _Server:
+    """One package's VolumeServer on PORT_NO, stopped so that the next
+    one can bind the same address."""
+
+    def __init__(self, mods, d: str, coder):
+        self.mods = mods
+        self.srv = mods["volume"].VolumeServer(
+            directories=[d], master=f"localhost:{NOBODY}", ip="127.0.0.1",
+            port=PORT_NO, coder=coder, pulse_seconds=1,
+            ec_geometry=mods["Geometry"](large_block=LARGE,
+                                         small_block=SMALL))
+        self.srv.start()
+        # a channel of its own: the cached ones may sit in reconnect
+        # backoff from the server that held this address before
+        addr = f"127.0.0.1:{PORT_NO + 10000}"
+        self.channel = grpc.insecure_channel(addr)
+        self.stub = mods["rpc"].Stub(self.channel,
+                                     mods["rpc"].VOLUME_SERVICE, addr)
+
+    def stop(self) -> None:
+        srv = self.srv
+        self.channel.close()
+        _drop_conn(PORT_NO)
+        srv.stop()
+        srv._http_server.server_close()
+        srv._grpc_server.stop(None).wait(10)
+
+
+def _files(d: str, exts) -> dict:
+    out = {}
+    for ext in exts:
+        p = os.path.join(d, f"{VID}{ext}")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[ext] = f.read()
+    return out
+
+
+SHARD_EXTS = tuple(f".ec{i:02d}" for i in range(14))
+
+
+def _lifecycle(mods, d: str, coder, code: str) -> dict:
+    """The operator's EC lifecycle through one package's server."""
+    m = mods
+    out = {}
+    s = _Server(m, d, coder)
+    try:
+        st = s.stub
+        st.AllocateVolume(m["vs"].AllocateVolumeRequest(
+            volume_id=VID, replication="000"), timeout=30)
+        for nid, cookie, data, ctype in NEEDLES:
+            status, _, body = _request(
+                "POST", "/" + _fid(nid, cookie), data,
+                {"Content-Type": ctype} if ctype else {})
+            assert status == 201, body
+        st.VolumeMarkReadonly(m["vs"].VolumeMarkReadonlyRequest(
+            volume_id=VID), timeout=30)
+        st.VolumeEcShardsGenerate(m["eg"].EcGenerateRequest(
+            volume_id=VID, geometry=code), timeout=120)
+        out["generated"] = _files(d, (".dat", ".idx", ".ecx", ".vif")
+                                  + SHARD_EXTS)
+        st.VolumeEcShardsMount(m["vs"].VolumeEcShardsMountRequest(
+            volume_id=VID, shard_ids=list(range(14))), timeout=30)
+        st.VolumeDelete(m["vs"].VolumeDeleteRequest(volume_id=VID),
+                        timeout=30)
+        assert not os.path.exists(os.path.join(d, f"{VID}.dat"))
+
+        st.VolumeEcShardsUnmount(m["vs"].VolumeEcShardsUnmountRequest(
+            volume_id=VID, shard_ids=list(LOST)), timeout=30)
+        st.VolumeEcShardsDelete(m["vs"].VolumeEcShardsDeleteRequest(
+            volume_id=VID, shard_ids=list(LOST)), timeout=30)
+        st.VolumeEcShardsMount(m["vs"].VolumeEcShardsMountRequest(
+            volume_id=VID, shard_ids=[i for i in range(14)
+                                      if i not in LOST]), timeout=30)
+        out["degraded"] = [_response("GET", "/" + _fid(nid, cookie))
+                           for nid, cookie, _, _ in NEEDLES]
+        nid, cookie = NEEDLES[2][:2]
+        out["range"] = [
+            _response("GET", "/" + _fid(nid, cookie),
+                      {"Range": "bytes=100-4099"}),
+            _response("GET", "/" + _fid(nid, cookie),
+                      {"Range": f"bytes=-{len(NEEDLES[2][2]) // 3}"})]
+        out["head"] = _response("HEAD", "/" + _fid(nid, cookie))
+        st.VolumeEcBlobDelete(m["vs"].VolumeEcBlobDeleteRequest(
+            volume_id=VID, file_key=BLOB_DELETED), timeout=30)
+        out["blob_deleted"] = _response(
+            "GET", "/" + _fid(BLOB_DELETED, NEEDLES[BLOB_DELETED - 1][1]))
+
+        reb = st.VolumeEcShardsRebuild(m["eg"].EcRebuildRequest(
+            volume_id=VID), timeout=120)
+        out["rebuilt_ids"] = list(reb.rebuilt_shard_ids)
+        out["rebuilt"] = _files(d, SHARD_EXTS + (".ecx",))
+        st.VolumeEcShardsMount(m["vs"].VolumeEcShardsMountRequest(
+            volume_id=VID, shard_ids=list(LOST)), timeout=30)
+
+        p = os.path.join(d, f"{VID}.ec{FLIP_SHARD:02d}")
+        with open(p, "r+b") as f:
+            f.seek(FLIP_AT)
+            b = f.read(1)
+            f.seek(FLIP_AT)
+            f.write(bytes([b[0] ^ 0x01]))
+        scrubs = []
+        for _ in range(2):
+            r = st.VolumeScrub(m["scrub_pb2"].VolumeScrubRequest(
+                volume_id=VID, full=True, repair=True), timeout=120)
+            scrubs.append((r.volumes_scrubbed, r.needles_checked,
+                           r.bytes_verified, r.repaired, r.skipped_pairs,
+                           [(f.volume_id, f.kind, f.needle_id, f.shard_id,
+                             f.detail, f.state) for f in r.findings]))
+        out["scrub"] = scrubs
+        out["repaired"] = _files(d, SHARD_EXTS)
+        out["after_scrub"] = [_response("GET", "/" + _fid(nid, cookie))
+                              for nid, cookie, _, _ in NEEDLES]
+    finally:
+        s.stop()
+    out["stopped_clean"] = not os.path.exists(recovery.marker_path(d))
+
+    snap = d + "-ec"
+    shutil.copytree(d, snap)
+    out["snapshot"] = snap
+    s = _Server(m, d, coder)
+    try:
+        s.stub.VolumeEcShardsToVolume(m["vs"].VolumeEcShardsToVolumeRequest(
+            volume_id=VID), timeout=120)
+        out["decoded"] = _files(d, (".dat", ".idx"))
+        out["decoded_gets"] = [_response("GET", "/" + _fid(nid, cookie))
+                               for nid, cookie, _, _ in NEEDLES]
+    finally:
+        s.stop()
+    return out
+
+
+_RUNS: dict = {}
+
+
+def _run(pkg: str, kind: str, code: str, tmp_path_factory) -> dict:
+    """One lifecycle, once per (package, kernel, geometry) in this module,
+    with both packages' needle clocks pinned to the same fresh Clock."""
+    key = (pkg, kind, code)
+    if key not in _RUNS:
+        with pytest.MonkeyPatch.context() as mp:
+            for mod in (ref_needle, needle):
+                mp.setattr(mod, "time", Clock())
+            d = str(tmp_path_factory.mktemp(f"{pkg}-{kind}-{code}") / "data")
+            os.mkdir(d)
+            if pkg == "ref":
+                coder = ref_new_coder(10, 4, "cpu", geometry=code)
+                _RUNS[key] = _lifecycle(REF, d, coder, code)
+            else:
+                mp.setenv("SEAWEEDFS_TORCH_KERNEL", kind)
+                coder = RSCodecTorch(10, 4, geometry=code, device="cpu")
+                _RUNS[key] = _lifecycle(PORT, d, coder, code)
+            _RUNS[key]["dir"] = d
+    return _RUNS[key]
+
+
+@pytest.fixture(scope="module", params=[(k, c) for c in CODES for k in KINDS],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def runs(request, tmp_path_factory):
+    """(reference run, port run) of one kernel and code geometry."""
+    kind, code = request.param
+    return (_run("ref", "numpy", code, tmp_path_factory),
+            _run("port", kind, code, tmp_path_factory))
+
+
+def _sha(files: dict) -> dict:
+    return {k: hashlib.sha256(v).hexdigest() for k, v in files.items()}
+
+
+def test_generate_writes_the_same_files(runs):
+    ref, port = runs
+    assert len(ref["generated"]) == 18  # .dat .idx .ecx .vif + 14 shards
+    assert _sha(port["generated"]) == _sha(ref["generated"])
+
+
+def test_degraded_gets_answer_the_same(runs):
+    ref, port = runs
+    assert port["degraded"] == ref["degraded"]
+    for (nid, _, data, ctype), got in zip(NEEDLES, port["degraded"]):
+        assert got[0] == 200 and got[1] == data, nid
+        assert got[3] == str(len(data))
+        assert got[5] == (ctype or "application/octet-stream")
+    assert port["range"] == ref["range"]
+    data = NEEDLES[2][2]
+    assert port["range"][0][0] == 206 and port["range"][0][1] == data[100:4100]
+    assert port["range"][1][1] == data[-(len(data) // 3):]
+    assert port["head"] == ref["head"] and port["head"][1] == b""
+    assert port["blob_deleted"] == ref["blob_deleted"]
+    assert port["blob_deleted"][0] == 404
+
+
+def test_rebuild_restores_the_same_shards(runs):
+    ref, port = runs
+    assert port["rebuilt_ids"] == ref["rebuilt_ids"] == list(LOST)
+    assert _sha(port["rebuilt"]) == _sha(ref["rebuilt"])
+    gen = {k: v for k, v in port["generated"].items() if k in SHARD_EXTS}
+    assert _sha({k: port["rebuilt"][k] for k in SHARD_EXTS}) == _sha(gen)
+
+
+def test_scrub_finds_and_repairs_the_flipped_byte(runs):
+    ref, port = runs
+    assert port["scrub"] == ref["scrub"]
+    first, second = port["scrub"]
+    assert [(f[1], f[3], f[5]) for f in first[5]] == [
+        ("ec_parity", FLIP_SHARD, "repaired")]
+    assert first[3] == 1 and second[5] == []
+    gen = {k: v for k, v in port["generated"].items() if k in SHARD_EXTS}
+    assert _sha(port["repaired"]) == _sha(ref["repaired"]) == _sha(gen)
+    assert port["after_scrub"] == port["degraded"][:BLOB_DELETED - 1] + [
+        port["blob_deleted"]] + port["degraded"][BLOB_DELETED:]
+    assert port["stopped_clean"] and ref["stopped_clean"]
+
+
+def test_ec_shards_to_volume_decodes_the_same_dat_and_idx(runs):
+    ref, port = runs
+    assert set(port["decoded"]) == {".dat", ".idx"}
+    assert _sha(port["decoded"]) == _sha(ref["decoded"])
+    dat = port["generated"][".dat"]
+    assert port["decoded"][".dat"] == dat[:len(port["decoded"][".dat"])]
+    assert port["decoded_gets"] == ref["decoded_gets"]
+    assert port["decoded_gets"][BLOB_DELETED - 1][0] == 404
+
+
+def test_no_lock_order_violation_in_the_port_server(runs):
+    assert locks.violations() == []
+
+
+@pytest.mark.parametrize("code", CODES)
+@pytest.mark.parametrize("direction", ["port-opens-ref", "ref-opens-port"])
+def test_each_server_opens_the_others_directory(code, direction,
+                                                tmp_path_factory, tmp_path):
+    """The EC state (shards, .ecx, .ecj, .vif) and the decoded .dat/.idx
+    that one package's server wrote serve the same bytes from the other
+    package's server."""
+    if direction == "port-opens-ref":
+        src = _run("ref", "numpy", code, tmp_path_factory)
+        mods, coder = PORT, RSCodecTorch(10, 4, geometry=code, device="cpu")
+    else:
+        src = _run("port", "xor", code, tmp_path_factory)
+        mods, coder = REF, ref_new_coder(10, 4, "cpu", geometry=code)
+    for state, path, want in (("ec", src["snapshot"], src["after_scrub"]),
+                              ("decoded", src["dir"], src["decoded_gets"])):
+        d = str(tmp_path / state)
+        shutil.copytree(path, d)
+        s = _Server(mods, d, coder)
+        try:
+            got = [_response("GET", "/" + _fid(nid, cookie))
+                   for nid, cookie, _, _ in NEEDLES]
+        finally:
+            s.stop()
+        assert got == want, state
+
+
+# -- what the port defers -----------------------------------------------------
+
+DEFERRED_RPCS = ("VacuumVolumeCompact", "VacuumVolumeCommit",
+                 "VacuumVolumeCleanup", "VolumeTierMoveDatToRemote",
+                 "VolumeTierMoveDatFromRemote",
+                 "VolumeEcShardsGenerateStreamed", "VolumeEcShardsStream",
+                 "VolumeEcShardsStreamStatus", "FetchAndWriteNeedle",
+                 "Query")
+
+
+@pytest.fixture(scope="module")
+def lone_server(tmp_path_factory):
+    """A masterless port server on its own address, with one needle."""
+    port = _free_port_pair()
+    d = str(tmp_path_factory.mktemp("lone"))
+    srv = port_volume.VolumeServer(
+        directories=[d], master=f"localhost:{NOBODY}", ip="127.0.0.1",
+        port=port, coder=RSCodecTorch(10, 4, device="cpu"))
+    srv.start()
+    rpc.reset_channels()
+    stub = rpc.volume_stub(f"127.0.0.1:{port + 10000}")
+    stub.AllocateVolume(vs.AllocateVolumeRequest(volume_id=VID,
+                                                 replication="000"),
+                        timeout=30)
+    nid, cookie, data, _ = NEEDLES[0]
+    assert _request("POST", "/" + _fid(nid, cookie), data,
+                    port=port)[0] == 201
+    yield srv, stub, port
+    _drop_conn(port)
+    srv.stop()
+    srv._http_server.server_close()
+
+
+@pytest.mark.parametrize("name", DEFERRED_RPCS)
+def test_deferred_rpc_answers_unimplemented(lone_server, name):
+    """Every method of the service is registered; the deferred ones abort
+    with UNIMPLEMENTED and name the ROADMAP.md item that ports them."""
+    _, stub, _ = lone_server
+    m = {x["name"]: x for x in rpc.VOLUME_SERVICE[1]}[name]
+    fn = getattr(stub, name)
+    req = m["req"](volume_id=VID) if "volume_id" in \
+        m["req"].DESCRIPTOR.fields_by_name else m["req"]()
+    with pytest.raises(grpc.RpcError) as e:
+        if m["cs"]:
+            fn(iter([req]), timeout=30)
+        elif m["ss"]:
+            list(fn(req, timeout=30))
+        else:
+            fn(req, timeout=30)
+    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert "ROADMAP.md" in e.value.details()
+
+
+def test_every_rpc_of_the_service_has_a_handler():
+    names = [m["name"] for m in rpc.VOLUME_SERVICE[1]]
+    assert names == [m["name"] for m in ref_rpc.VOLUME_SERVICE[1]]
+    assert all(callable(getattr(port_volume.VolumeGrpc, n)) for n in names)
+
+
+@pytest.mark.parametrize("path", ["/ui", "/", "/{fid}?width=16"])
+def test_deferred_http_routes_answer_501(lone_server, path):
+    _, _, port = lone_server
+    nid, cookie = NEEDLES[0][:2]
+    status, _, body = _request("GET", path.format(fid=_fid(nid, cookie)),
+                               port=port)
+    assert status == 501 and b"ROADMAP.md" in body
+
+
+def test_a_write_that_needs_peers_fails_loudly(lone_server, monkeypatch):
+    """Replicated writes are not ported: a write whose volume has peers
+    answers 500 instead of a local-only 201; a delete still acks its
+    durable tombstone but counts the skipped peer."""
+    srv, stub, port = lone_server
+    from seaweedfs_tpu_torch.utils.stats import VOLUME_REPLICA_DELETE_FAILURES
+
+    stub.AllocateVolume(vs.AllocateVolumeRequest(volume_id=VID + 1,
+                                                 replication="001"),
+                        timeout=30)
+    peer = "127.0.0.1:1"
+    monkeypatch.setattr(srv, "lookup_volume_locations",
+                        lambda vid: [srv.address, peer])
+    nid, cookie, data, _ = NEEDLES[1]
+    fid = f"{VID + 1},{format_needle_id_cookie(nid, cookie)}"
+    status, _, body = _request("POST", "/" + fid, data, port=port)
+    assert status == 500 and b"ROADMAP.md" in body
+    before = VOLUME_REPLICA_DELETE_FAILURES.value(peer=peer)
+    assert _request("DELETE", "/" + fid, port=port)[0] == 202
+    assert VOLUME_REPLICA_DELETE_FAILURES.value(peer=peer) == before + 1
+
+
+@pytest.mark.parametrize("how", ["native", "env", "tier"])
+def test_unported_options_fail_at_construction(tmp_path, monkeypatch, how):
+    kw = {}
+    if how == "native":
+        kw["native"] = True
+    elif how == "env":
+        monkeypatch.setenv("SEAWEEDFS_TPU_NATIVE", "1")
+    else:
+        kw["tier_backends"] = {"local": {"default": {"root": str(tmp_path)}}}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_volume.VolumeServer(
+            directories=[str(tmp_path)], master=f"localhost:{NOBODY}",
+            port=_free_port_pair(), coder=RSCodecTorch(10, 4, device="cpu"),
+            **kw)
+
+
+# -- the process ----------------------------------------------------------------
+
+_WRAPPER = r"""
+import atexit, runpy, sys
+out = sys.argv[1]
+
+
+def dump():
+    with open(out, "w") as f:
+        f.write("\n".join(sorted(sys.modules)))
+
+
+atexit.register(dump)
+sys.argv = ["seaweedfs_tpu_torch"] + sys.argv[2:]
+runpy.run_module("seaweedfs_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _spawn(args, tmp_path, modules_file):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log = open(tmp_path / "server.log", "wb")
+    return subprocess.Popen(
+        [sys.executable, "-c", _WRAPPER, str(modules_file)] + args,
+        cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def test_volume_command_serves_without_jax(tmp_path):
+    """`python -m seaweedfs_tpu_torch volume -coder cpu` as a process:
+    /status answers, an encode and a degraded GET are served over HTTP and
+    gRPC, SIGTERM stops it with exit 0 and the dirty marker lifted, and
+    neither jax nor any seaweedfs_tpu module was ever imported."""
+    port = _free_port_pair()
+    d = tmp_path / "data"
+    d.mkdir()
+    modules_file = tmp_path / "modules.txt"
+    proc, log = _spawn(["volume", "-dir", str(d), "-port", str(port),
+                        "-mserver", f"localhost:{NOBODY}", "-coder", "cpu"],
+                       tmp_path, modules_file)
+    try:
+        deadline = time.time() + 90
+        while True:
+            assert proc.poll() is None, (tmp_path / "server.log").read_text()
+            try:
+                if _request("GET", "/status", port=port)[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.time() < deadline, "no /status"
+            time.sleep(0.2)
+        rpc.reset_channels()
+        stub = rpc.volume_stub(f"127.0.0.1:{port + 10000}")
+        stub.AllocateVolume(vs.AllocateVolumeRequest(volume_id=3,
+                                                     replication="000"),
+                            timeout=30)
+        needles = NEEDLES[:12]
+        for nid, cookie, data, _ in needles:
+            fid = f"3,{format_needle_id_cookie(nid, cookie)}"
+            assert _request("POST", "/" + fid, data, port=port)[0] == 201
+        stub.VolumeMarkReadonly(vs.VolumeMarkReadonlyRequest(volume_id=3),
+                                timeout=30)
+        stub.VolumeEcShardsGenerate(eg.EcGenerateRequest(volume_id=3),
+                                    timeout=120)
+        stub.VolumeUnmount(vs.VolumeUnmountRequest(volume_id=3), timeout=30)
+        stub.VolumeEcShardsDelete(vs.VolumeEcShardsDeleteRequest(
+            volume_id=3, shard_ids=list(LOST)), timeout=30)
+        stub.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=3, shard_ids=[i for i in range(14) if i not in LOST]),
+            timeout=30)
+        # default geometry: a volume this small lies in shard 0's first
+        # block, so every GET reconstructs
+        for nid, cookie, data, _ in needles:
+            fid = f"3,{format_needle_id_cookie(nid, cookie)}"
+            status, _, body = _request("GET", "/" + fid, port=port)
+            assert status == 200 and body == data, nid
+        st = _request("GET", "/status", port=port)
+        assert b'"reconstruct"' in st[2]
+        _drop_conn(port)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        _drop_conn(port)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        rpc.reset_channels()
+    assert not os.path.exists(recovery.marker_path(str(d)))
+    mods = modules_file.read_text().split("\n")
+    assert "seaweedfs_tpu_torch.server.volume" in mods
+    assert "jax" not in mods
+    assert not [m for m in mods if m == "seaweedfs_tpu"
+                or m.startswith("seaweedfs_tpu.") or m.startswith("jax.")]
+
+
+def test_volume_command_without_a_card_fails_at_start(tmp_path):
+    """The default coder is the card: no CUDA device, no server — nothing
+    falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the start without a CUDA device")
+    proc, log = _spawn(["volume", "-dir", str(tmp_path), "-port",
+                        str(_free_port_pair()), "-mserver",
+                        f"localhost:{NOBODY}"], tmp_path,
+                       tmp_path / "modules.txt")
+    try:
+        rc = proc.wait(timeout=120)
+    finally:
+        log.close()
+    assert rc != 0
+    assert "no CUDA device" in (tmp_path / "server.log").read_text()
+
+
+# -- both packages' protobuf files in one process -------------------------------
+
+PB_MODULES = ("volume_server_pb2", "scrub_pb2", "remote_pb2",
+              "ec_geometry_pb2", "ec_gather_pb2", "qos_pb2", "ec_stream_pb2",
+              "master_pb2")
+
+
+@pytest.mark.parametrize("name", PB_MODULES)
+def test_both_packages_protobuf_files_register_in_one_process(name):
+    """The port's pb modules are the reference's: loaded beside them in one
+    process, each message class describes the same type in the same file,
+    and bytes written by one parse in the other."""
+    import importlib
+
+    ref = importlib.import_module(f"seaweedfs_tpu.pb.{name}")
+    port = importlib.import_module(f"seaweedfs_tpu_torch.pb.{name}")
+
+    def classes(mod):
+        return {k: v for k, v in vars(mod).items()
+                if isinstance(v, type) and hasattr(v, "DESCRIPTOR")
+                and hasattr(v, "SerializeToString")}
+
+    rc, pc = classes(ref), classes(port)
+    assert rc and set(pc) == set(rc)
+    for k in rc:
+        assert pc[k].DESCRIPTOR.full_name == rc[k].DESCRIPTOR.full_name
+        assert pc[k].DESCRIPTOR.file.name == rc[k].DESCRIPTOR.file.name
+        assert (pc[k].DESCRIPTOR.file.serialized_pb
+                == rc[k].DESCRIPTOR.file.serialized_pb)
+    if name == "volume_server_pb2":
+        msg = port.VolumeEcShardsMountRequest(volume_id=9, collection="c",
+                                              shard_ids=[1, 2, 13])
+        back = ref.VolumeEcShardsMountRequest.FromString(
+            msg.SerializeToString())
+        assert back.SerializeToString() == msg.SerializeToString()
