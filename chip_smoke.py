@@ -89,16 +89,46 @@ and prints no result without them. Phases, each printing its own line:
                      server's /status (dispatch lanes) and /metrics (K1
                      launches by R) show each step's EC work ran K1 on the
                      card
+  9. cluster         the operator's path through a cluster of processes:
+                     `python3 -m seaweedfs_tpu_torch master`
+                     (-volumeSizeLimitMB 1024, -defaultReplication 001) and
+                     four `volume` servers with their default coder (cuda,
+                     K1) in racks r0, r0, r1, r1, all started at once.
+                     `shell` volume.grow of one volume of collection c1
+                     with replication 001; 8 clients write seeded 1-64 KiB
+                     needles through operation.submit until it holds 1000
+                     MiB of needle bytes (both replicas hold every one); a
+                     seeded 10% deleted through the primary, then
+                     `volume.vacuum -garbageThreshold 0.05` (both replicas
+                     compact and commit; every needle read back from each,
+                     byte-exact or 404); `lock; ec.encode; unlock` (K1 at
+                     R = 4 on the source, shards copied rack-aware 4/4/3/3,
+                     both replicas deleted; 14 shard sha256s wherever they
+                     landed against the numpy cpu coder; volume.list shows
+                     the EC volume on all four servers); SIGKILL of a
+                     server holding 4 shards and 8 readers GET every
+                     surviving needle through MasterClient lookups
+                     (degraded reads gather survivors from the other
+                     servers over VolumeEcShardRead); a fresh empty server
+                     and `ec.rebuild` (sha-identical); a byte flipped in a
+                     shard on disk found and repaired by `volume.scrub
+                     -full`, a second pass clean; `ec.decode` and every
+                     needle GET again; a second collection of 128 MiB
+                     encoded with `-dataShards 6 -parityShards 3` (BASELINE
+                     config #5), a server lost, every needle GET
+                     byte-exact; SIGTERM to every process: exit 0, no
+                     dirty marker. Each step's wall and rate, and K1's
+                     launches by R summed from every server's /metrics
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
-pipeline phases (a short loop for one kernel; K1's are pipeline, store and
-server); the run says what it skipped.
+pipeline phases (a short loop for one kernel; K1's are pipeline, store,
+server and cluster); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
 read just after; a kernel that path never launched fails the run. The
 server phase's counts start at 0 with its process and are read from its
 /metrics before and after each step. K1's count in the JSON line is the sum
-over its three phases. K1's launches are also split by R (1 or 2: a
+over its four phases. K1's launches are also split by R (1 or 2: a
 degraded read through EcVolume, 4: a degraded GET through the server, 3:
 rebuild, 4: encode). The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
@@ -198,7 +228,8 @@ _MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                 ("H200", 4.8e12), ("H100", 3.35e12))
 
 # the pipeline phases that drive each kernel
-PHASES = {"gf_xor": "pipeline, store and server", "gf_bits": "pipeline-bits",
+PHASES = {"gf_xor": "pipeline, store, server and cluster",
+          "gf_bits": "pipeline-bits",
           "gf_sel": "pipeline-sched"}
 # each kernel: its module, operand form and the TPU kernel it replaces
 KERNELS = {
@@ -632,15 +663,17 @@ def make_volume(base: str, size_bytes: int, seed: int) -> list[tuple]:
     return [(n[0], n[1], n[3]) for n in needles]
 
 
+def _hash_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(16 * MIB):
+            h.update(chunk)
+    return h.hexdigest()
+
+
 def shard_hashes(base: str, geo: Geometry) -> list[str]:
-    out = []
-    for i in range(geo.total_shards):
-        h = hashlib.sha256()
-        with open(geo.shard_file_name(base, i), "rb") as f:
-            while chunk := f.read(16 * MIB):
-                h.update(chunk)
-        out.append(h.hexdigest())
-    return out
+    return [_hash_file(geo.shard_file_name(base, i))
+            for i in range(geo.total_shards)]
 
 
 def cpu_oracle_hashes(base: str, geo: Geometry, workdir: str) -> list[str]:
@@ -649,7 +682,8 @@ def cpu_oracle_hashes(base: str, geo: Geometry, workdir: str) -> list[str]:
     try:
         obase = os.path.join(odir, "v")
         os.symlink(os.path.abspath(base + ".dat"), obase + ".dat")
-        ec_files.write_ec_files(obase, new_coder(backend="cpu"), geo)
+        coder = new_coder(geo.data_shards, geo.parity_shards, backend="cpu")
+        ec_files.write_ec_files(obase, coder, geo)
         return shard_hashes(obase, geo)
     finally:
         shutil.rmtree(odir)
@@ -1519,6 +1553,613 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         shutil.rmtree(sdir)
 
 
+# -- cluster --------------------------------------------------------------------
+
+
+CLUSTER_VOLUME_MB = 1000  # needle bytes: the .dat stays under the limit
+CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
+CLUSTER_SMALL_MB = 128  # config #5's collection
+CLUSTER_RACKS = ("r0", "r0", "r1", "r1")
+CLUSTER_DELETED = 0.10  # the share of needles deleted before the vacuum
+CLUSTER_CALL_S = 1200  # the longest a shell command may take
+SMALL_GEO = Geometry(data_shards=6, parity_shards=3)
+# a volume server caches the master's EC shard locations this long; a
+# scrub that starts sooner after a rebuild plans from the old map (the
+# reference's behaviour too) and verifies nothing
+EC_LOCATION_CACHE_S = 10.0
+
+
+class _Fleet:
+    """The cluster phase's processes: `python3 -m seaweedfs_tpu_torch`
+    master and volume servers, each with its own log, and shells."""
+
+    def __init__(self, phase: str, root: str):
+        self.phase = phase
+        self.root = root
+        self.env = {k: v for k, v in os.environ.items()
+                    if k not in ("SEAWEEDFS_TORCH_KERNEL",
+                                 "SEAWEEDFS_TORCH_CODER")}
+        self.env["SWFS_SCRUB_MAX_MBPS"] = "0"  # unpaced scrub
+        self.procs: dict[str, tuple] = {}  # name -> (proc, log, port, dir)
+        self.rack_of: dict[str, str] = {}  # volume server address -> rack
+        self.master_port = _free_port_pair()
+        self.master = f"127.0.0.1:{self.master_port}"
+        self.k1_gone: dict[int, int] = {}  # K1 by R of killed servers
+
+    def _spawn(self, name: str, args: list[str], port: int, d: str):
+        log_f = open(os.path.join(self.root, f"{name}.log"), "wb")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch"] + args, cwd=HERE,
+            env=self.env, stdout=log_f, stderr=subprocess.STDOUT)
+        self.procs[name] = (proc, log_f, port, d)
+
+    def spawn_master(self) -> None:
+        self._spawn("master", ["master", "-ip", "127.0.0.1", "-port",
+                               str(self.master_port), "-volumeSizeLimitMB",
+                               str(CLUSTER_LIMIT_MB), "-defaultReplication",
+                               "001"], self.master_port, "")
+
+    def spawn_volume(self, name: str, rack: str) -> None:
+        port = _free_port_pair()
+        while port == self.master_port or port in self.ports():
+            port = _free_port_pair()
+        d = os.path.join(self.root, name)
+        os.mkdir(d)
+        self.rack_of[f"127.0.0.1:{port}"] = rack
+        self._spawn(name, ["volume", "-dir", d, "-ip", "127.0.0.1",
+                           "-port", str(port), "-mserver", self.master,
+                           "-rack", rack], port, d)
+
+    def ports(self) -> list[int]:
+        return [p for _, _, p, _ in self.procs.values()]
+
+    def volumes(self) -> dict[str, tuple]:
+        """{address: (name, dir)} of the running volume servers."""
+        return {f"127.0.0.1:{p}": (n, d)
+                for n, (proc, _, p, d) in self.procs.items()
+                if n != "master" and proc.poll() is None}
+
+    def wait_up(self, names, timeout: float = SERVER_START_S) -> float:
+        """Wait until each process answers /status and the master lists
+        every volume server; -> seconds."""
+        t0 = time.perf_counter()
+        for name in names:
+            proc, _, port, _ = self.procs[name]
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"{self.phase}: {name} exited with "
+                                         f"{proc.returncode} at start")
+                try:
+                    _status(port)
+                    break
+                except OSError:
+                    if time.perf_counter() - t0 > timeout:
+                        raise
+                    time.sleep(0.2)
+        self.wait_nodes(set(self.volumes()), timeout)
+        return time.perf_counter() - t0
+
+    def nodes(self) -> set[str]:
+        return set(_status(self.master_port)["Topology"]["DataNodes"])
+
+    def wait_nodes(self, want: set[str], timeout: float = 120) -> None:
+        t0 = time.perf_counter()
+        while self.nodes() != want:
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"{self.phase}: the master lists "
+                                     f"{sorted(self.nodes())}, not "
+                                     f"{sorted(want)}")
+            time.sleep(0.2)
+
+    def shell(self, *lines: str) -> tuple[str, float]:
+        """Commands through `python3 -m seaweedfs_tpu_torch shell` on
+        stdin; -> (output, seconds). A command that fails fails the run."""
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+             "-master", self.master], cwd=HERE, env=self.env,
+            input="\n".join(lines) + "\n", capture_output=True, text=True,
+            timeout=CLUSTER_CALL_S)
+        wall = time.perf_counter() - t0
+        out = r.stdout
+        if r.returncode != 0 or "error:" in out or "unknown command" in out:
+            raise AssertionError(f"{self.phase}: shell {list(lines)} "
+                                 f"exited {r.returncode}:\n{out}\n"
+                                 f"{r.stderr[-4000:]}")
+        return out, wall
+
+    def k1(self) -> dict[int, int]:
+        """K1 launches by R summed over every volume server, killed ones
+        included (read just before they were killed)."""
+        out = dict(self.k1_gone)
+        for name, (proc, _, port, _) in self.procs.items():
+            if name == "master" or proc.poll() is not None:
+                continue
+            for (k, r), n in _kernel_launches(port).items():
+                if k == "gf_xor" and r:
+                    out[int(r)] = out.get(int(r), 0) + n
+        return out
+
+    def kill(self, address: str) -> None:
+        name, _ = self.volumes()[address]
+        proc, _, port, _ = self.procs[name]
+        for (k, r), n in _kernel_launches(port).items():
+            if k == "gf_xor" and r:
+                self.k1_gone[int(r)] = self.k1_gone.get(int(r), 0) + n
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        self.wait_nodes(set(self.volumes()))
+
+    def terminate(self) -> dict[str, int]:
+        """SIGTERM to every process still running -> their exit codes."""
+        live = {n: p for n, (p, _, _, _) in self.procs.items()
+                if p.poll() is None}
+        for p in live.values():
+            p.send_signal(signal.SIGTERM)
+        return {n: p.wait(timeout=120) for n, p in live.items()}
+
+    def close(self) -> None:
+        for proc, log_f, _, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+
+    def log_tails(self) -> str:
+        out = []
+        for name in self.procs:
+            with open(os.path.join(self.root, f"{name}.log"), "rb") as f:
+                tail = f.read()[-1500:].decode(errors="replace")
+            out.append(f"--- {name}\n{tail}")
+        return "\n".join(out)
+
+
+def _k1_step(before: dict, after: dict) -> dict:
+    return {r: after.get(r, 0) - before.get(r, 0)
+            for r in sorted(set(before) | set(after))
+            if after.get(r, 0) - before.get(r, 0)}
+
+
+def _seeded_needles(rng, total_mb: int, payload: bytes) -> list[tuple]:
+    """(start, size) slices of `payload` of 1-64 KiB, `total_mb` MiB."""
+    out = []
+    start = total = 0
+    while total < total_mb * MIB:
+        size = int(rng.integers(1, 64 * 1024 + 1))
+        if start + size > len(payload):
+            start = 0
+        out.append((start, size))
+        start += size
+        total += size
+    return out
+
+
+def _in_threads(work, items) -> list:
+    """work(item) for every item by SERVER_CLIENTS threads, items dealt
+    round-robin; -> the results in order. The first error raises."""
+    out = [None] * len(items)
+
+    def run(t):
+        for i in range(t, len(items), SERVER_CLIENTS):
+            out[i] = work(items[i])
+
+    _all_at_once(run, list(range(SERVER_CLIENTS)))
+    return out
+
+
+def _submit_all(phase: str, master: str, collection: str, needles,
+                payload: bytes) -> tuple[list[str], float]:
+    """Every needle through operation.submit by 8 clients; -> (fids,
+    seconds)."""
+    from seaweedfs_tpu_torch.operation import submit
+
+    def one(needle):
+        start, size = needle
+        r = submit(master, payload[start:start + size],
+                   collection=collection, replication="001")
+        if "error" in r:
+            raise AssertionError(f"{phase}: submit: {r['error']}")
+        return r["fid"]
+
+    t0 = time.perf_counter()
+    fids = _in_threads(one, needles)
+    return fids, time.perf_counter() - t0
+
+
+def _get_each(phase: str, urls_of, items, payload: bytes) -> list[float]:
+    """GET each (fid, start, size) item at urls_of(fid)[0], byte-exact
+    against the bytes written (size None: must answer 404); -> seconds
+    of each GET."""
+    from seaweedfs_tpu_torch.wdclient import pool
+
+    def one(item):
+        fid, start, size = item
+        url = urls_of(fid)[0]
+        t0 = time.perf_counter()
+        r = pool.get(url, timeout=120)
+        dt = time.perf_counter() - t0
+        if size is None:
+            if r.status != 404:
+                raise AssertionError(f"{phase}: GET {url} of a deleted "
+                                     f"needle: {r.status}")
+        elif r.status != 200 or r.data != payload[start:start + size]:
+            raise AssertionError(f"{phase}: GET {url}: {r.status}, "
+                                 f"{len(r.data)} B, not the bytes written")
+        return dt
+
+    return _in_threads(one, items)
+
+
+def _ec_shard_files(fleet: _Fleet, base_name: str, geo: Geometry) -> dict:
+    """{shard id: (server address, path)} over the running servers."""
+    out = {}
+    for addr, (_, d) in fleet.volumes().items():
+        for sid in range(geo.total_shards):
+            path = geo.shard_file_name(os.path.join(d, base_name), sid)
+            if os.path.exists(path):
+                if sid in out:
+                    raise AssertionError(f"shard {sid} of {base_name} on "
+                                         f"{out[sid][0]} and {addr}")
+                out[sid] = (addr, path)
+    return out
+
+
+def _check_ec(phase: str, fleet: _Fleet, base_name: str, geo: Geometry,
+              oracle: list[str]) -> dict:
+    """Every shard present once, sha-identical to the numpy coder's;
+    -> {shard id: server address}."""
+    files = _ec_shard_files(fleet, base_name, geo)
+    if sorted(files) != list(range(geo.total_shards)):
+        raise AssertionError(f"{phase}: shards {sorted(files)} of "
+                             f"{base_name}")
+    bad = [sid for sid, (_, path) in files.items()
+           if _hash_file(path) != oracle[sid]]
+    if bad:
+        raise AssertionError(f"{phase}: shards {bad} of {base_name} differ "
+                             f"from the numpy cpu coder")
+    return {sid: addr for sid, (addr, _) in files.items()}
+
+
+def _wait_ec(fleet: _Fleet, vid: int, shards: int, plain: bool) -> None:
+    """Wait until the master's topology shows `shards` EC shards of `vid`
+    and (`plain`) or not its plain replicas."""
+    from seaweedfs_tpu_torch.pb import master_pb2
+
+    stub = rpc.master_stub(rpc.grpc_address(fleet.master))
+    t0 = time.perf_counter()
+    while True:
+        topo = stub.VolumeList(master_pb2.VolumeListRequest(),
+                               timeout=60).topology_info
+        ec = vols = 0
+        for dc in topo.data_center_infos:
+            for rack in dc.rack_infos:
+                for dn in rack.data_node_infos:
+                    for disk in dn.disk_infos.values():
+                        vols += sum(v.id == vid for v in disk.volume_infos)
+                        ec += sum(bin(e.ec_index_bits).count("1")
+                                  for e in disk.ec_shard_infos if e.id == vid)
+        if ec == shards and bool(vols) == plain:
+            return
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"cluster: the master shows {ec} shards "
+                                 f"and {vols} replicas of volume {vid}")
+        time.sleep(0.3)
+
+
+def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
+    """The operator's path through a cluster of processes on the card
+    (see the module docstring); -> K1's launches."""
+    from seaweedfs_tpu_torch.pb import master_pb2
+    from seaweedfs_tpu_torch.wdclient import MasterClient, pool
+
+    phase = "cluster"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    fleet = _Fleet(phase, root)
+    cached = _build.library_path("gf_xor.cu").exists()
+    try:
+        t0 = time.perf_counter()
+        fleet.spawn_master()
+        for i, rack in enumerate(CLUSTER_RACKS):
+            fleet.spawn_volume(f"v{i}", rack)
+        up_s = fleet.wait_up(["master"] + [f"v{i}" for i in
+                                           range(len(CLUSTER_RACKS))])
+        rpc.reset_channels()  # no channel dialled before the listeners
+        _, empty_s = fleet.shell("volume.list")
+        log(phase, f"one master (-volumeSizeLimitMB {CLUSTER_LIMIT_MB} "
+                   f"-defaultReplication 001) and {len(CLUSTER_RACKS)} "
+                   f"volume servers (default coder, racks "
+                   f"{'/'.join(CLUSTER_RACKS)}) started at once: all "
+                   f"registered in {up_s:.2f} s; K1's library was "
+                   f"{'already built' if cached else 'not built yet'}; an "
+                   f"empty shell process takes {empty_s:.2f} s")
+
+        # 1. writes: one volume with a same-rack replica, 8 clients
+        out, _ = fleet.shell("volume.grow -collection c1 -replication 001 "
+                             "-count 1")
+        rng = np.random.default_rng(seed)
+        payload = rng.bytes(CLUSTER_VOLUME_MB * MIB)
+        needles = _seeded_needles(rng, CLUSTER_VOLUME_MB, payload)
+        fids, write_s = _submit_all(phase, fleet.master, "c1", needles,
+                                    payload)
+        vids = {int(f.split(",")[0]) for f in fids}
+        if len(vids) != 1:
+            raise AssertionError(f"{phase}: writes landed in volumes {vids}")
+        vid = vids.pop()
+        mc = MasterClient(fleet.master)
+        replicas = [loc.url for loc in mc.lookup_volume(vid)]
+        if len(replicas) != 2:
+            raise AssertionError(f"{phase}: volume {vid} on {replicas}")
+        counts = [rpc.volume_stub(rpc.grpc_address(a)).ReadVolumeFileStatus(
+            vs.ReadVolumeFileStatusRequest(volume_id=vid), timeout=60)
+            for a in replicas]
+        if {c.file_count for c in counts} != {len(needles)}:
+            raise AssertionError(f"{phase}: replicas hold "
+                                 f"{[c.file_count for c in counts]} of "
+                                 f"{len(needles)} needles")
+        total = sum(size for _, size in needles)
+        log(phase, f"volume.grow: volume {vid} on {replicas} (same rack); "
+                   f"{len(needles)} needles ({total} B of 1-64 KiB) through "
+                   f"operation.submit by {SERVER_CLIENTS} clients in "
+                   f"{write_s:.3f} s = {total / write_s / 1e9:.3f} GB/s of "
+                   f"needle bytes ({len(needles) / write_s:.0f} writes/s, "
+                   f"each on both replicas: {counts[0].dat_file_size} and "
+                   f"{counts[1].dat_file_size} B of .dat)")
+
+        # 2. a seeded 10% deleted through the primary, then volume.vacuum
+        gone = set(rng.choice(len(needles),
+                              size=int(len(needles) * CLUSTER_DELETED),
+                              replace=False).tolist())
+
+        def delete(i):
+            r = pool.delete(f"http://{replicas[0]}/{fids[i]}", timeout=120)
+            if r.status != 202:
+                raise AssertionError(f"{phase}: DELETE {fids[i]}: {r.status}")
+
+        t0 = time.perf_counter()
+        _in_threads(delete, sorted(gone))
+        del_s = time.perf_counter() - t0
+        out, vac_s = fleet.shell("volume.vacuum -garbageThreshold 0.05")
+        after = []
+        for a in replicas:
+            stub = rpc.volume_stub(rpc.grpc_address(a))
+            st = stub.ReadVolumeFileStatus(vs.ReadVolumeFileStatusRequest(
+                volume_id=vid), timeout=60)
+            ratio = stub.VacuumVolumeCheck(vs.VacuumVolumeCheckRequest(
+                volume_id=vid), timeout=60).garbage_ratio
+            after.append((st.file_count, st.compaction_revision,
+                          st.dat_file_size, ratio))
+        if any(fc != len(needles) - len(gone) or rev != 1 or ratio != 0
+               for fc, rev, _, ratio in after):
+            raise AssertionError(f"{phase}: after volume.vacuum the replicas "
+                                 f"report (files, revision, .dat, garbage) "
+                                 f"{after}")
+        items = [(fids[i], *needles[i]) if i not in gone
+                 else (fids[i], 0, None) for i in range(len(needles))]
+        back_ms = []
+        for a in replicas:
+            back_ms += _get_each(phase, lambda fid, a=a: [f"http://{a}/{fid}"],
+                                 items, payload)
+        log(phase, f"{len(gone)} needles deleted through the primary in "
+                   f"{del_s:.3f} s; volume.vacuum -garbageThreshold 0.05 "
+                   f"(shell, {vac_s:.3f} s): both replicas compacted and "
+                   f"committed, (files, revision, .dat B, garbage) {after}; "
+                   f"every needle read back from each replica, byte-exact "
+                   f"or 404 ({_ms(back_ms)})")
+
+        # 3. ec.encode from the shell
+        src_name, src_dir = fleet.volumes()[replicas[0]]
+        base_name = f"c1_{vid}"
+        keep = os.path.join(root, "source")
+        for ext in (".dat", ".idx"):
+            os.link(os.path.join(src_dir, base_name + ext), keep + ext)
+        dat_bytes = os.path.getsize(keep + ".dat")
+        k0 = fleet.k1()
+        out, enc_s = fleet.shell("lock", f"ec.encode -volumeId {vid}",
+                                 "unlock")
+        spread = [x for x in out.splitlines() if "shards spread" in x]
+        _wait_ec(fleet, vid, 14, plain=False)
+        k1 = fleet.k1()
+        geo = Geometry()
+        t0 = time.perf_counter()
+        oracle = cpu_oracle_hashes(keep, geo, workdir)
+        oracle_s = time.perf_counter() - t0
+        where = _check_ec(phase, fleet, base_name, geo, oracle)
+        listing, _ = fleet.shell("volume.list")
+        holders = listing.count(f"ec volume id:{vid} ")
+        if holders != len(CLUSTER_RACKS):
+            raise AssertionError(f"{phase}: volume.list shows volume {vid} "
+                                 f"on {holders} servers:\n{listing}")
+        by_server: dict[str, list[int]] = {}
+        for sid, a in sorted(where.items()):
+            by_server.setdefault(a, []).append(sid)
+        enc_k1 = _k1_step(k0, k1)
+        log(phase, f"shell lock; ec.encode -volumeId {vid}; unlock: "
+                   f"{enc_s:.3f} s = {dat_bytes / (enc_s - empty_s) / 1e9:.3f}"
+                   f" GB/s of .dat beyond an empty shell ({dat_bytes} B; "
+                   f"generate on {replicas[0]}, copy, mount, delete both "
+                   f"replicas); {spread[0].lstrip('> ') if spread else ''}; 14 "
+                   f"shard sha256s match the numpy cpu coder "
+                   f"({oracle_s:.1f} s); volume.list shows the EC volume "
+                   f"on all {holders} servers; K1 launches by R {enc_k1}")
+        if not enc_k1.get(4):
+            raise AssertionError(f"{phase}: ec.encode did not launch K1 at "
+                                 f"R = 4: {enc_k1}")
+
+        # 4. the server that holds 4 shards lost; 8 readers through lookups
+        victim = next(a for a, sids in sorted(by_server.items())
+                      if len(sids) == 4)
+        lost = by_server[victim]
+        fleet.kill(victim)
+        ids, offs, sizes = idx.read_index_file(keep + ".idx")
+        where_of = {int(n): (types.stored_to_actual_offset(int(o)),
+                             types.actual_size(int(z)))
+                    for n, o, z in zip(ids, offs, sizes)}
+        live = [i for i in range(len(needles)) if i not in gone]
+        extents = [(i, *where_of[int(fids[i].split(",")[1][:-8], 16)])
+                   for i in live]
+        touching, others = split_by_lost(geo, dat_bytes, extents, lost)
+        touching = set(touching)
+        mc = MasterClient(fleet.master)
+        k2 = fleet.k1()
+        got_ms = _get_each(phase, mc.lookup_file_id,
+                           [(fids[i], *needles[i]) for i in live], payload)
+        k3 = fleet.k1()
+        deg = [t for i, t in zip(live, got_ms) if i in touching]
+        rest = [t for i, t in zip(live, got_ms) if i not in touching]
+        get_k1 = _k1_step(k2, k3)
+        log(phase, f"SIGKILL of {victim} (shards {lost}); the master "
+                   f"dropped it; every surviving needle GET byte-exact "
+                   f"through MasterClient lookups by {SERVER_CLIENTS} "
+                   f"readers: {len(deg)} on a lost shard "
+                   f"({_ms(deg)}), {len(rest)} others ({_ms(rest)}); K1 "
+                   f"launches by R {get_k1}")
+        if not sum(get_k1.values()):
+            raise AssertionError(f"{phase}: the degraded GETs never launched "
+                                 f"K1")
+
+        # 5. a fresh, empty server in the lost one's rack; ec.rebuild
+        fleet.spawn_volume("v4", fleet.rack_of[victim])
+        fresh_s = fleet.wait_up(["v4"])
+        out, reb_s = fleet.shell("lock", f"ec.rebuild -volumeId {vid}",
+                                 "unlock")
+        k4 = fleet.k1()
+        m = re.search(r"rebuilt shards (\[[^]]*\]) on (\S+) .*?, (\d+) bytes",
+                      out)
+        if not m or sorted(json.loads(m.group(1))) != sorted(lost):
+            raise AssertionError(f"{phase}: ec.rebuild said:\n{out}")
+        survivor_bytes = int(m.group(3))
+        _wait_ec(fleet, vid, 14, plain=False)
+        where = _check_ec(phase, fleet, base_name, geo, oracle)
+        reb_k1 = _k1_step(k3, k4)
+        log(phase, f"a fresh server up in {fresh_s:.2f} s; shell ec.rebuild "
+                   f"-volumeId {vid}: shards {lost} rebuilt on {m.group(2)} "
+                   f"in {reb_s:.3f} s = "
+                   f"{survivor_bytes / (reb_s - empty_s) / 1e9:.3f} GB/s of "
+                   f"survivors read ({survivor_bytes} B) beyond an empty "
+                   f"shell, sha-identical; K1 launches by R {reb_k1}")
+        if not reb_k1.get(len(lost)):
+            raise AssertionError(f"{phase}: the rebuild launched K1 by R "
+                                 f"{reb_k1}")
+
+        # 6. a byte flipped in one shard on disk; volume.scrub -full, once
+        # the servers' cached shard locations include the rebuilt ones
+        time.sleep(EC_LOCATION_CACHE_S + 1)
+        node = sorted(a for a in set(where.values()) if a != m.group(2))[0]
+        sid = min(s for s, a in where.items() if a == node)
+        path = geo.shard_file_name(os.path.join(
+            fleet.volumes()[node][1], base_name), sid)
+        flip_at = os.path.getsize(path) // 2 + 12345
+        with open(path, "r+b") as f:
+            f.seek(flip_at)
+            b = f.read(1)
+            f.seek(flip_at)
+            f.write(bytes([b[0] ^ 0x5A]))
+        first, scrub_s = fleet.shell(
+            f"volume.scrub -node={node} -volumeId {vid} -full")
+        second, _ = fleet.shell(
+            f"volume.scrub -node={node} -volumeId {vid} -full")
+        k5 = fleet.k1()
+        if "1 finding(s), 1 repaired" not in first or \
+                f"shard={sid} [repaired]" not in first:
+            raise AssertionError(f"{phase}: the scrub said:\n{first}")
+        if " 0 finding(s)" not in second:
+            raise AssertionError(f"{phase}: a second scrub said:\n{second}")
+        _check_ec(phase, fleet, base_name, geo, oracle)
+        said_scrub = next(x for x in first.splitlines()
+                          if "scrubbed" in x).lstrip("> ")
+        log(phase, f"byte {flip_at} of shard {sid} flipped on {node}: shell "
+                   f"volume.scrub -full found and repaired it in "
+                   f"{scrub_s:.3f} s ({said_scrub}); a "
+                   f"second pass found none; shards sha-identical; K1 "
+                   f"launches by R {_k1_step(k4, k5)}")
+
+        # 7. ec.decode back to a plain volume; every needle GET once more
+        out, dec_s = fleet.shell("lock", f"ec.decode -volumeId {vid}",
+                                 "unlock")
+        _wait_ec(fleet, vid, 0, plain=True)
+        k6 = fleet.k1()
+        mc = MasterClient(fleet.master)
+        again = _get_each(phase, mc.lookup_file_id,
+                          [(fids[i], *needles[i]) for i in live], payload)
+        said = [x for x in out.splitlines() if "decoded back" in x]
+        if not said:
+            raise AssertionError(f"{phase}: ec.decode said:\n{out}")
+        log(phase, f"shell ec.decode -volumeId {vid}: {dec_s:.3f} s "
+                   f"({said[0].lstrip('> ')}); every surviving needle GET byte-exact from the plain "
+                   f"volume ({_ms(again)}); K1 launches by R "
+                   f"{_k1_step(k5, k6)}")
+
+        # 8. config #5: a second collection at RS(6,3), a server lost
+        fleet.shell("volume.grow -collection c5 -replication 001 -count 1")
+        small = _seeded_needles(rng, CLUSTER_SMALL_MB, payload)
+        sfids, swrite_s = _submit_all(phase, fleet.master, "c5", small,
+                                      payload)
+        svids = {int(f.split(",")[0]) for f in sfids}
+        if len(svids) != 1:
+            raise AssertionError(f"{phase}: c5 writes landed in {svids}")
+        svid = svids.pop()
+        sreplicas = [loc.url for loc in
+                     MasterClient(fleet.master).lookup_volume(svid)]
+        skeep = os.path.join(root, "small")
+        for ext in (".dat", ".idx"):
+            os.link(os.path.join(fleet.volumes()[sreplicas[0]][1],
+                                 f"c5_{svid}{ext}"), skeep + ext)
+        out, senc_s = fleet.shell(
+            "lock", f"ec.encode -volumeId {svid} -dataShards 6 "
+                    f"-parityShards 3", "unlock")
+        _wait_ec(fleet, svid, SMALL_GEO.total_shards, plain=False)
+        soracle = cpu_oracle_hashes(skeep, SMALL_GEO, workdir)
+        swhere = _check_ec(phase, fleet, f"c5_{svid}", SMALL_GEO, soracle)
+        sby: dict[str, list[int]] = {}
+        for sid, a in sorted(swhere.items()):
+            sby.setdefault(a, []).append(sid)
+        svictim = max(sorted(sby), key=lambda a: len(sby[a]))
+        fleet.kill(svictim)
+        mc = MasterClient(fleet.master)
+        sget = _get_each(phase, mc.lookup_file_id,
+                         [(f, *n) for f, n in zip(sfids, small)], payload)
+        k7 = fleet.k1()
+        sbytes = os.path.getsize(skeep + ".dat")
+        log(phase, f"config #5: {len(small)} needles in collection c5 "
+                   f"({swrite_s:.3f} s); shell ec.encode -volumeId {svid} "
+                   f"-dataShards 6 -parityShards 3: {senc_s:.3f} s "
+                   f"({sbytes} B), 9 shard sha256s match the numpy cpu "
+                   f"coder, spread {sby}; SIGKILL of {svictim} (shards "
+                   f"{sby[svictim]}); every needle GET byte-exact "
+                   f"({_ms(sget)}); K1 launches by R {_k1_step(k6, k7)}")
+
+        # 9. SIGTERM to every process
+        by_r = fleet.k1()
+        dirs = {n: d for n, (_, _, _, d) in fleet.procs.items()
+                if n != "master" and fleet.procs[n][0].poll() is None}
+        rcs = fleet.terminate()
+        if set(rcs.values()) != {0}:
+            raise AssertionError(f"{phase}: exit codes on SIGTERM {rcs}")
+        dirty = [n for n, d in dirs.items()
+                 if os.path.exists(recovery.marker_path(d))]
+        if dirty:
+            raise AssertionError(f"{phase}: dirty marker left by {dirty}")
+        log(phase, f"SIGTERM: {sorted(rcs)} exited 0, no dirty marker. "
+                   f"writes {total / write_s / 1e9:.3f} GB/s, vacuum "
+                   f"{vac_s:.3f} s, encode "
+                   f"{dat_bytes / (enc_s - empty_s) / 1e9:.3f} GB/s, "
+                   f"GETs on a lost shard {_ms(deg)}, "
+                   f"rebuild {survivor_bytes / (reb_s - empty_s) / 1e9:.3f} "
+                   f"GB/s, scrub {scrub_s:.3f} s, decode {dec_s:.3f} s; "
+                   f"gf_xor by R over every server {dict(sorted(by_r.items()))}"
+                   f"; phase wall {time.perf_counter() - t_phase:.3f} s; "
+                   f"nvidia-smi: {smi}")
+        return dict(launches=sum(by_r.values()))
+    except BaseException:
+        log(phase, f"log tails:\n{fleet.log_tails()}")
+        raise
+    finally:
+        fleet.close()
+        rpc.reset_channels()
+        shutil.rmtree(root)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1631,6 +2272,8 @@ def main(argv=None) -> int:
         got = store_phase(seed=4, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
         got = server_phase(seed=5, workdir=args.workdir, card=card, smi=smi)
+        paths["gf_xor"]["launches"] += got["launches"]
+        got = cluster_phase(seed=6, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
 
     rows = []

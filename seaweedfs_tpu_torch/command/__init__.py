@@ -1,10 +1,14 @@
-"""CLI: the `weed` binary's volume subcommand (counterpart of
-seaweedfs_tpu/command/__init__.py; SeaweedFS weed/weed.go:47,
-weed/command/command.go:11-45). Run as
-`python -m seaweedfs_tpu_torch volume -dir <dirs> -mserver <master>`.
+"""CLI: the `weed` binary (counterpart of seaweedfs_tpu/command/__init__.py;
+SeaweedFS weed/weed.go:47, weed/command/command.go:11-45). Run as
+`python -m seaweedfs_tpu_torch <cmd>`.
 
-Subcommands: volume, version. The master, filer, S3, shell and the
-offline tools of the reference's CLI are not part of the port yet.
+Subcommands: master, volume, server (master + volume in one process),
+shell, upload, download, version. The volume servers' erasure coder is
+the CUDA card by default (`-coder cuda`): without one they fail at start,
+and nothing falls back to the CPU unless `-coder cpu` asks for it. The
+filer, S3 and the other gateways, the master's Raft group (`-peers`),
+`benchmark` and the offline tools are not part of the port yet: their
+flags fail at start, naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -13,6 +17,10 @@ import argparse
 import signal
 import sys
 import threading
+
+ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
+ROADMAP_FILER = "ROADMAP.md A2d (filer)"
+ROADMAP_S3 = "ROADMAP.md A2d (S3 gateway)"
 
 
 def main(argv=None) -> int:
@@ -27,6 +35,23 @@ def main(argv=None) -> int:
     p.add_argument("-memprofile", default="",
                    help="write a tracemalloc summary at exit")
     sub = p.add_subparsers(dest="cmd")
+
+    mp = sub.add_parser("master", help="run a master server")
+    mp.add_argument("-ip", default="localhost")
+    mp.add_argument("-port", type=int, default=9333)
+    mp.add_argument("-volumeSizeLimitMB", type=int, default=30_000)
+    mp.add_argument("-defaultReplication", default="000")
+    mp.add_argument("-garbageThreshold", type=float, default=0.3)
+    mp.add_argument("-peers", default="",
+                    help="comma-separated master peers for Raft HA (not "
+                         "part of the port yet: a non-empty value fails "
+                         "at start)")
+    mp.add_argument("-mdir", default="",
+                    help="directory for Raft state persistence (used only "
+                         "with -peers)")
+    mp.add_argument("-metricsAddress", default="",
+                    help="Prometheus push-gateway, broadcast to the fleet")
+    mp.add_argument("-metricsIntervalSec", type=int, default=15)
 
     vp = sub.add_parser("volume", help="run a volume server")
     vp.add_argument("-dir", default="./data", help="comma-separated data dirs")
@@ -57,6 +82,49 @@ def main(argv=None) -> int:
                          "32GB (the reference's 5BytesOffset build tag as a "
                          "runtime switch; .idx stride becomes 17 bytes and "
                          "is not interchangeable with 4-byte index files)")
+
+    sp = sub.add_parser("server",
+                        help="master + volume in one process")
+    sp.add_argument("-dir", default="./data")
+    sp.add_argument("-ip", default="localhost")
+    sp.add_argument("-master.port", dest="master_port", type=int,
+                    default=9333)
+    sp.add_argument("-volume.port", dest="volume_port", type=int,
+                    default=8080)
+    sp.add_argument("-coder", default="cuda", choices=["cuda", "cpu"],
+                    help="the volume server's erasure coder, as for volume")
+    sp.add_argument("-filer", action="store_true",
+                    help="also run a filer (not part of the port yet: "
+                         "fails at start)")
+    sp.add_argument("-filer.port", dest="filer_port", type=int, default=8888)
+    sp.add_argument("-s3", action="store_true",
+                    help="also run an S3 gateway (not part of the port "
+                         "yet: fails at start)")
+    sp.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
+    sp.add_argument("-volume.nativeDataPlane", dest="volume_native",
+                    default="auto", nargs="?", const="on",
+                    choices=["auto", "on", "off"],
+                    help="the C++ needle data plane is not part of the "
+                         "port: auto = off, on fails at start")
+
+    shp = sub.add_parser("shell", help="admin shell (commands on stdin)")
+    shp.add_argument("-master", default="localhost:9333")
+    shp.add_argument("-filer", default="",
+                     help="filer address for fs.*/remote.* commands (not "
+                          "part of the port yet: a non-empty value fails "
+                          "at start)")
+
+    up = sub.add_parser("upload", help="upload files")
+    up.add_argument("-master", default="localhost:9333")
+    up.add_argument("-collection", default="")
+    up.add_argument("-replication", default="")
+    up.add_argument("-ttl", default="")
+    up.add_argument("files", nargs="+")
+
+    dp = sub.add_parser("download", help="download a fid")
+    dp.add_argument("-master", default="localhost:9333")
+    dp.add_argument("-output", default="-")
+    dp.add_argument("fid")
 
     sub.add_parser("version", help="print version")
 
@@ -94,6 +162,98 @@ def _run(opts) -> int:
         from .. import __version__
 
         print(f"seaweedfs-tpu-torch {__version__}")
+        return 0
+
+    if opts.cmd == "master":
+        from ..server.master import MasterServer
+        from ..utils.config import load_security_config
+
+        sec = load_security_config()
+        try:
+            ms = MasterServer(ip=opts.ip, port=opts.port,
+                              volume_size_limit_mb=opts.volumeSizeLimitMB,
+                              default_replication=opts.defaultReplication,
+                              garbage_threshold=opts.garbageThreshold,
+                              peers=[p.strip() for p in opts.peers.split(",")
+                                     if p.strip()] or None,
+                              metrics_address=opts.metricsAddress,
+                              metrics_interval_sec=opts.metricsIntervalSec,
+                              write_jwt_key=sec["write_key"],
+                              jwt_expires_sec=sec["expires_sec"])
+        except NotImplementedError as e:
+            raise SystemExit(f"master: {e}")
+        ms.start()
+        _wait_forever()
+        ms.stop()
+        return 0
+
+    if opts.cmd == "server":
+        from ..models.coder import new_coder
+        from ..server.master import MasterServer
+        from ..server.volume import VolumeServer
+
+        if opts.filer:
+            raise SystemExit(f"server: -filer is not part of the PyTorch "
+                             f"port yet: {ROADMAP_FILER}")
+        if opts.s3:
+            raise SystemExit(f"server: -s3 is not part of the PyTorch port "
+                             f"yet: {ROADMAP_S3}")
+        coder = None if opts.coder == "cuda" else new_coder(backend="cpu")
+        try:
+            # the volume server first: without a card it fails before the
+            # master binds anything
+            vsrv = VolumeServer(directories=opts.dir.split(","),
+                                master=f"{opts.ip}:{opts.master_port}",
+                                ip=opts.ip, port=opts.volume_port,
+                                coder=coder,
+                                native=opts.volume_native == "on")
+        except (RuntimeError, NotImplementedError) as e:
+            raise SystemExit(f"server: {e}")
+        ms = MasterServer(ip=opts.ip, port=opts.master_port)
+        ms.start()
+        vsrv.start()
+        _wait_forever()
+        vsrv.stop()
+        ms.stop()
+        return 0
+
+    if opts.cmd == "shell":
+        from ..shell.env import CommandEnv
+        from ..shell.registry import repl
+
+        if opts.filer:
+            raise SystemExit(f"shell: -filer is not part of the PyTorch "
+                             f"port yet: {ROADMAP_FILER}")
+        repl(CommandEnv(opts.master))
+        return 0
+
+    if opts.cmd == "upload":
+        import json
+
+        from ..operation import submit
+
+        for path in opts.files:
+            with open(path, "rb") as f:
+                data = f.read()
+            res = submit(opts.master, data, filename=path,
+                         collection=opts.collection,
+                         replication=opts.replication, ttl=opts.ttl)
+            print(json.dumps({"file": path, **res}))
+        return 0
+
+    if opts.cmd == "download":
+        import requests
+
+        from ..wdclient import MasterClient
+
+        urls = MasterClient(opts.master).lookup_file_id(opts.fid)
+        r = requests.get(urls[0], timeout=60)
+        r.raise_for_status()
+        if opts.output == "-":
+            sys.stdout.buffer.write(r.content)
+        else:
+            with open(opts.output, "wb") as f:
+                f.write(r.content)
         return 0
 
     if opts.cmd == "volume":

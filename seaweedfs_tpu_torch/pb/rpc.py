@@ -9,9 +9,8 @@ so service classes are derived from descriptor tables instead of generated
 code — the wire format is identical).
 
 Counterpart of seaweedfs_tpu/pb/rpc.py with the tables that the volume
-server serves or dials: its own service and the master's (without the
-metadata-ring methods). The filer, MQ, S3, mount, IAM, TiKV, YDB and etcd
-tables are not part of the port yet.
+server and the master serve or dial. The filer, MQ, S3, mount, IAM, TiKV,
+YDB and etcd tables are not part of the port yet.
 
 Convention kept from the reference: a server's gRPC port is its HTTP port
 + 10000 (weed/pb/server_address.go).
@@ -29,6 +28,7 @@ from . import (
     ec_geometry_pb2,
     ec_stream_pb2,
     master_pb2,
+    meta_ring_pb2,
     qos_pb2,
     scrub_pb2,
     volume_server_pb2,
@@ -81,6 +81,12 @@ MASTER_SERVICE = ("master_pb.Seaweed", [
     # QoS plane (qos.proto; messages in pb/qos_pb2.py): volume servers
     # lease cluster-wide background byte budgets and report pressure
     _m("QosGrant", qos_pb2.QosGrantRequest, qos_pb2.QosGrantResponse),
+    # metadata ring plane (meta_ring.proto; messages in
+    # pb/meta_ring_pb2.py): the port's master answers them UNIMPLEMENTED
+    _m("GetMetaRing", meta_ring_pb2.GetMetaRingRequest,
+       meta_ring_pb2.MetaRingResponse),
+    _m("JoinMetaRing", meta_ring_pb2.JoinMetaRingRequest,
+       meta_ring_pb2.MetaRingResponse),
     _m("RaftListClusterServers", M.RaftListClusterServersRequest, M.RaftListClusterServersResponse),
     _m("RaftAddServer", M.RaftAddServerRequest, M.RaftAddServerResponse),
     _m("RaftRemoveServer", M.RaftRemoveServerRequest, M.RaftRemoveServerResponse),

@@ -3,19 +3,20 @@
 Counterpart of seaweedfs_tpu/server/volume.py (SeaweedFS
 weed/server/volume_server.go, volume_server_handlers_{read,write}.go,
 volume_grpc_*.go and volume_grpc_client_to_master.go:50-92). The data
-plane speaks HTTP (PUT/GET/DELETE of "/vid,fid" needles); the admin plane
-is gRPC (allocate, mount, copy, tail, scrub and the erasure-coding RPCs,
-whose shard math runs on the store's coder: the hand-written CUDA kernels
-by default, through the EC dispatch scheduler).
+plane speaks HTTP (PUT/GET/DELETE of "/vid,fid" needles, replica fan-out
+with `?type=replicate`); the admin plane is gRPC (vacuum, allocate, mount,
+copy, tail, scrub and the erasure-coding RPCs, whose shard math runs on
+the store's coder: the hand-written CUDA kernels by default, through the
+EC dispatch scheduler).
 
 Every RPC of the service is registered. Those whose dependencies are not
 part of the port yet answer UNIMPLEMENTED (HTTP: 501) with a message that
-names the ROADMAP.md item that will port them: the vacuum RPCs, tiering,
-the streamed encode, remote fetch, Query, writes replicated to peers,
-/ui, image resizing and the native C++ data plane (`native=True` raises
-here). A server without a reachable master keeps serving: the heartbeat
-retries and EC shard lookups cache an empty answer, so the local shards
-encode, serve degraded reads, rebuild and scrub on their own.
+names the ROADMAP.md item that will port them: tiering, the streamed
+encode, remote fetch, Query, /ui, image resizing and the native C++ data
+plane (`native=True` raises here). A server without a reachable master
+keeps serving: the heartbeat retries and EC shard lookups cache an empty
+answer, so the local shards encode, serve degraded reads, rebuild and
+scrub on their own.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from urllib.parse import parse_qs, urlparse
 import grpc
 import numpy as np
 
+from ..operation import sync_stride_marker
 from ..ops import dispatch
 from ..pb import master_pb2, rpc, scrub_pb2, volume_server_pb2 as vs
 from ..scrub import Scrubber
@@ -59,8 +61,8 @@ from ..storage.file_id import parse_file_id
 from ..storage.needle import CrcError, Needle
 from ..storage.store import Store
 from ..storage.ttl import TTL
-from ..utils import failpoint, glog, numa, trace
-from ..utils.http import not_modified, parse_range, range_applies
+from ..utils import failpoint, fanout, glog, numa, trace
+from ..utils.http import not_modified, parse_range, range_applies, url_for
 from ..utils.stats import (
     VOLUME_REPLICA_DELETE_FAILURES,
     VOLUME_SERVER_EC_ENCODE_BYTES,
@@ -74,12 +76,10 @@ from ..utils.stats import (
 BUFFER_SIZE_LIMIT = 2 * 1024 * 1024  # streaming chunk (volume_grpc_copy.go:25)
 
 # ROADMAP.md items that will port what this module answers UNIMPLEMENTED
-ROADMAP_VACUUM = "ROADMAP.md A2c (vacuum: Volume.compact)"
 ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
 ROADMAP_STREAM = "ROADMAP.md A4 (streamed encode: storage/ec_stream.py)"
 ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
 ROADMAP_QUERY = "ROADMAP.md A2d (query)"
-ROADMAP_REPLICATE = "ROADMAP.md A2d (replicated writes: wdclient.pool)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
 ROADMAP_IMAGES = "ROADMAP.md A2d (images)"
 ROADMAP_NATIVE = "ROADMAP.md A2c (native C++ data plane)"
@@ -844,14 +844,50 @@ class VolumeServer:
                         locations: list[str],
                         content_type: str = "",
                         content_encoding: str = "") -> None:
-        """A write that must reach peers fails loudly: the replica fan-out
-        (topology/store_replicate.go:24) rides wdclient.pool, which the
-        port does not carry yet. The caller answers 500, never a silent
-        local-only ack."""
-        peers = [a for a in locations if a != self.address]
-        if peers:
-            raise IOError(_not_ported(f"replicating {fid} to {peers}",
-                                      ROADMAP_REPLICATE))
+        """Send a write to the volume's other replicas
+        (topology/store_replicate.go:24); the first failed leg raises once
+        every leg has settled."""
+        from ..wdclient import pool
+
+        # the body is forwarded VERBATIM (possibly gzipped, possibly a
+        # multipart envelope), so the headers describing it must travel
+        # too: without Content-Encoding the replica stores compressed
+        # bytes with is_compressed unset and later serves raw gzip to
+        # readers (silent corruption on replica failover)
+        headers = trace.inject_headers({})  # replicas join the trace
+        if content_type:
+            headers["Content-Type"] = content_type
+        if content_encoding:
+            headers["Content-Encoding"] = content_encoding
+        # replicas enforce JWT like any write; re-sign with the shared
+        # cluster key (the reference re-mints for fan-out the same way)
+        if self.write_jwt_key:
+            from ..security import gen_write_jwt
+
+            headers["Authorization"] = \
+                f"Bearer {gen_write_jwt(self.write_jwt_key, fid)}"
+
+        def send(addr):
+            # the replica leg rides the keep-alive pool: the primary
+            # holds one warm connection per replica instead of a TCP(+TLS)
+            # dial per replicated write
+            url = url_for(addr, f"{fid}?type=replicate")
+            for k, v in params.items():
+                url += f"&{k}={v}"
+            try:
+                r = pool.put(url, body=body, headers=headers, timeout=30)
+            except OSError as e:
+                raise IOError(f"replica write to {addr}: {e}") from e
+            if r.status >= 300:
+                raise IOError(f"replica write to {addr}: {r.status}")
+
+        # shared bounded fan-out executor: no thread spawn per replicated
+        # write. run_all waits for every send to settle before raising
+        # the first failure. The "replicate" tier, NOT the pipeline tier:
+        # in a combined process, pipeline-tier uploads block on this very
+        # handler — sharing their pool would be a circular wait.
+        fanout.run_all(send, [a for a in locations if a != self.address],
+                       pool="replicate")
 
     def lookup_volume_locations(self, vid: int) -> list[str]:
         """Replica locations for a volume, cached ~10s (the write hot path
@@ -918,14 +954,36 @@ class VolumeGrpc:
         return vs.VacuumVolumeCheckResponse(garbage_ratio=v.garbage_level())
 
     def VacuumVolumeCompact(self, request, context):
-        _unimplemented(context, "VacuumVolumeCompact", ROADMAP_VACUUM)
-        yield from ()  # a generator, as a server-streaming handler is
+        from ..storage.errors import VacuumCrcError
+
+        v = self._volume(request.volume_id, context)
+        try:
+            v.compact()
+        except VacuumCrcError:
+            # the scrub-aware vacuum found ROT while copying (not some
+            # environmental IOError): abort is already done (compact
+            # never commits bad bytes) — queue the repair ladder so the
+            # NEXT vacuum finds a healed volume
+            self.srv.scrubber.report_suspect(request.volume_id)
+            raise
+        yield vs.VacuumVolumeCompactResponse(processed_bytes=v.data_size())
 
     def VacuumVolumeCommit(self, request, context):
-        _unimplemented(context, "VacuumVolumeCommit", ROADMAP_VACUUM)
+        v = self._volume(request.volume_id, context)
+        v.commit_compact()
+        return vs.VacuumVolumeCommitResponse(
+            is_read_only=v.read_only, volume_size=v.data_size())
 
     def VacuumVolumeCleanup(self, request, context):
-        _unimplemented(context, "VacuumVolumeCleanup", ROADMAP_VACUUM)
+        v = self._volume(request.volume_id, context)
+        base = v.file_name()
+        for ext in (".cpd", ".cpx"):
+            try:
+                os.remove(base + ext)
+            except FileNotFoundError:
+                pass
+        v.is_compacting = False
+        return vs.VacuumVolumeCleanupResponse()
 
     # ---- collections / allocation
 
@@ -1041,7 +1099,7 @@ class VolumeGrpc:
             yield vs.VolumeCopyResponse(processed_bytes=total)
         # the copied bytes carry the SOURCE's offset width — mirror its
         # marker rather than stamping local mode (operation docstring)
-        _sync_stride_marker(src, vid, status.collection, base)
+        sync_stride_marker(src, vid, status.collection, base)
         self.store.mount_volume(vid)
         self.srv.trigger_heartbeat()
         v = self.store.find_volume(vid)
@@ -1415,9 +1473,9 @@ class VolumeGrpc:
             if ext == ".ecx":
                 # the per-index stride marker travels WITH the .ecx: the
                 # SOURCE's offset width decides how its entries parse
-                _sync_stride_marker(src, request.volume_id,
-                                    request.collection, base,
-                                    ext=".ecx.lrg", is_ec=True)
+                sync_stride_marker(src, request.volume_id,
+                                   request.collection, base,
+                                   ext=".ecx.lrg", is_ec=True)
         EC_COPY_FALLBACK_SECONDS.inc(time.perf_counter() - t0)
         # an index-only copy (the streaming path ships shard bytes itself
         # and pulls just .ecx/.ecj/.vif here) leaves shard bytes — and
@@ -2108,17 +2166,56 @@ def _make_http_handler(srv: VolumeServer):
                 return self._json({"error": str(e)}, 403)
             if q.get("type") != "replicate" and \
                     srv.volume_needs_replication(fid.volume_id):
+                del_headers = {}
+                if srv.write_jwt_key:
+                    from ..security import gen_write_jwt
+
+                    del_headers["Authorization"] = "Bearer " + \
+                        gen_write_jwt(srv.write_jwt_key,
+                                      u.path.lstrip("/"))
                 for addr in srv.lookup_volume_locations(fid.volume_id):
                     if addr == srv.address:
                         continue
-                    # the local tombstone is durable and anti-entropy's
-                    # tombstone-wins pass converges the peer, so the delete
-                    # still acks — but a diverged replica is never silent
-                    glog.warning(
-                        f"replicate delete {u.path.lstrip('/')} to {addr} "
-                        f"skipped: " + _not_ported("replica fan-out",
-                                                   ROADMAP_REPLICATE))
-                    VOLUME_REPLICA_DELETE_FAILURES.inc(peer=addr)
+                    try:
+                        from ..utils import retry as retry_mod
+                        from ..wdclient import pool
+
+                        def _leg(a=addr):
+                            r = pool.delete(
+                                url_for(a, f"{u.path}?type=replicate"),
+                                headers=del_headers, timeout=10)
+                            # the peer answering an error IS a failed
+                            # leg (store OSError -> 500, jwt -> 401):
+                            # pool.delete never raises on status, so
+                            # without this check a server-side failure
+                            # would count as success — the same silent
+                            # divergence the transport arm closes (the
+                            # replicate WRITE path has the same guard)
+                            if r.status >= 300 and r.status != 404:
+                                err = (f"replica delete on {a}: "
+                                       f"{r.status} {r.text[:200]}")
+                                if r.status >= 500:
+                                    # transient (peer restarting):
+                                    # ConnectionError classifies as
+                                    # retryable, so attempts=2 is real
+                                    raise ConnectionError(err)
+                                raise IOError(err)  # auth/shape: fast
+
+                        # attempts=2 with a 10s leg timeout: this runs
+                        # synchronously before the client's 202, and
+                        # anti-entropy converges a peer that stays down
+                        # — loudness is the goal here, not durability
+                        retry_mod.retry("volume.replicate_delete", _leg,
+                                        attempts=2)
+                    except Exception as e:  # noqa: BLE001
+                        # the local tombstone is durable and
+                        # anti-entropy's tombstone-wins pass converges
+                        # the peer, so the delete still acks — but a
+                        # diverged replica is never silent
+                        glog.warning(
+                            f"replicate delete {u.path.lstrip('/')} "
+                            f"to {addr} failed after retries: {e}")
+                        VOLUME_REPLICA_DELETE_FAILURES.inc(peer=addr)
             self._json({"size": size}, 202)
 
     return Handler
@@ -2147,29 +2244,3 @@ def _extract_upload(headers, body: bytes) -> tuple[bytes, bytes]:
         if payload is not None:
             return (fname or "").encode(), payload
     return b"", b""
-
-
-def _sync_stride_marker(stub, volume_id: int, collection: str, base: str,
-                        ext: str = ".lrg", is_ec: bool = False) -> None:
-    """Mirror the SOURCE's stride-marker file next to freshly copied
-    volume/EC index bytes (counterpart of the reference's
-    operation.sync_stride_marker).
-
-    Raw-byte copies carry the source's offset width, so the local marker
-    must reflect the source, not this process's mode — stamping local
-    mode at a copy site would make the open-time stride guards a
-    tautology and let a cross-mode copy misparse silently."""
-    try:
-        for _ in stub.CopyFile(vs.CopyFileRequest(
-                volume_id=volume_id, ext=ext, collection=collection,
-                is_ec_volume=is_ec), timeout=60):
-            pass
-        with open(base + ext, "wb"):
-            pass
-    except grpc.RpcError as e:
-        if e.code() != grpc.StatusCode.NOT_FOUND:
-            raise
-        try:
-            os.remove(base + ext)
-        except FileNotFoundError:
-            pass

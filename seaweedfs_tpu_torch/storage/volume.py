@@ -2,11 +2,12 @@
 
 Counterpart of seaweedfs_tpu/storage/volume.py (SeaweedFS
 weed/storage/volume.go, volume_write.go, volume_read.go,
-volume_loading.go, volume_checking.go, needle_map_memory.go): the write,
-read and delete path, group commit, the startup integrity repair and the
-needle scan. Vacuum (compact / commit_compact), moving a `.dat` to a tier
-backend and back, and the native C++ data plane are not part of the port
-yet; a volume already tiered by the reference still opens read-only.
+volume_loading.go, volume_checking.go, volume_vacuum.go,
+needle_map_memory.go): the write, read and delete path, group commit, the
+startup integrity repair, the needle scan and vacuum (compact /
+commit_compact). Moving a `.dat` to a tier backend and back, and the
+native C++ data plane, are not part of the port yet; a volume already
+tiered by the reference still opens read-only.
 
 One volume = superblock + appended needle records in
 `.dat`, with a 16-byte-per-entry `.idx` log replayed into an in-memory map
@@ -287,6 +288,10 @@ class Volume:
         # write sequence advances under _lock.
         self.epoch_stamper = None
         self.epoch_seq = 0
+        self.is_compacting = False
+        # (needles, bytes) CRC re-verified by the last compact(); consumed
+        # by commit_compact's scrub-pass publication
+        self._vacuum_verified: tuple[int, int] | None = None
         # witnessed: the group-commit flush takes volume.mu
         # THEN volume.gc_cv (see _gc_flush); nothing may reverse that
         self._lock = locks.wrlock("volume.mu", rank=300)
@@ -858,6 +863,144 @@ class Volume:
                 return
             yield full, offset
             offset += total
+
+    # -- vacuum (volume_vacuum.go) -----------------------------------------
+
+    def compact(self) -> None:
+        """Compact2 (volume_vacuum.go:67): copy live needles into .cpd/.cpx.
+
+        Scrub-aware: compaction reads every
+        live record anyway, so each one is CRC re-verified as it is
+        copied — for free, byte-wise. A mismatch ABORTS the vacuum (a
+        compacted volume must never launder rot into a freshly-written
+        .dat where the scrubber would re-find it with no healthy replica
+        journal behind it) and surfaces the needle id for the repair
+        ladder; after a clean commit the vacuum is published as a
+        completed scrub pass (scrub.scrubber.record_vacuum_pass).
+        SWFS_VACUUM_VERIFY=0 restores the old unverified copy."""
+        verify = os.environ.get("SWFS_VACUUM_VERIFY", "1").lower() \
+            not in ("0", "false", "off")
+        with self._lock:
+            if self._dat is None:
+                raise IOError(
+                    f"volume {self.id} is tiered; download before vacuum")
+            self.is_compacting = True
+            self._sync_buffers()  # the snapshot must cover buffered writes
+            self._compact_idx_snapshot = os.path.getsize(self.nm.idx_path)
+        self._vacuum_verified = None
+        try:
+            base = self.file_name()
+            new_sb = self.super_block.bump_compaction()
+            checked_needles = checked_bytes = 0
+            with open(base + ".cpd", "wb") as dst:
+                dst.write(new_sb.to_bytes())
+                from .needle_map import MemDb
+
+                newdb = MemDb()
+                for n, _off in self.scan_needles():
+                    nv = self.nm.get(n.id)
+                    if nv is None or types.size_is_deleted(nv.size):
+                        continue
+                    if types.stored_to_actual_offset(nv.offset) != _off:
+                        continue  # superseded by a later rewrite
+                    if n.has_expired():
+                        continue
+                    if verify:
+                        if not n.crc_ok():
+                            from .errors import VacuumCrcError
+
+                            raise VacuumCrcError(self.id, n.id, _off)
+                        checked_needles += 1
+                        checked_bytes += len(n.data)
+                    new_off = dst.tell()
+                    dst.write(n.to_bytes(self.version))
+                    newdb.set(n.id, types.offset_to_stored(new_off), n.size)
+            with open(base + ".cpx", "wb") as f:
+                f.write(newdb.to_sorted_bytes())
+            if verify:
+                self._vacuum_verified = (checked_needles, checked_bytes)
+        except BaseException:
+            self.is_compacting = False
+            raise
+
+    def commit_compact(self) -> None:
+        """CommitCompact (volume_vacuum.go:102): catch up writes since the
+        snapshot (makeupDiff), atomically swap .cpd/.cpx into place."""
+        base = self.file_name()
+        with self._lock:
+            self._sync_buffers()  # the diff replay reads the idx FILE
+            self._makeup_diff(base + ".cpd", base + ".cpx")
+            self._dat.close()
+            self.nm.close()
+            os.replace(base + ".cpd", base + ".dat")
+            from ..utils import failpoint
+
+            # chaos seam between the two renames: a crash here leaves
+            # .cpx without .cpd, the one state the recovery ladder must
+            # roll FORWARD (the new .dat is already live)
+            failpoint.fail("volume.vacuum.commit", ctx=base + ",")
+            os.replace(base + ".cpx", base + ".idx")
+            from .backend import DiskFile
+
+            self._dat = DiskFile(base + ".dat")
+            self._dat_tail = None
+            self.super_block = SuperBlock.from_file(self._dat)
+            self.nm = self._new_needle_map(base + ".idx")
+            self.is_compacting = False
+            # extent of the freshly-committed, CRC-verified .dat — read
+            # under the lock so appends racing the publication below are
+            # never claimed as verified
+            verified_end = self.data_size()
+        # scrub-aware vacuum: every live record was CRC re-verified on
+        # the way into the new .dat, so publish the vacuum as a completed
+        # scrub pass — cursor (.scb) at the new revision, fresh digest
+        # manifest (.dig), sweep counters credited. Outside the volume
+        # lock (the digest pass re-reads every CRC tail) and best-effort:
+        # a failed publication must never fail the committed vacuum.
+        verified, self._vacuum_verified = self._vacuum_verified, None
+        if verified is not None:
+            # lint: allow-broad-except(the vacuum is committed; a failed
+            # publication is logged and the next scrub pass covers it)
+            try:
+                from ..scrub.scrubber import record_vacuum_pass
+
+                record_vacuum_pass(self, *verified,
+                                   verified_end=verified_end)
+            except Exception as e:  # noqa: BLE001
+                from ..utils import glog
+
+                glog.warning(
+                    f"volume {self.id}: vacuum scrub-pass publication "
+                    f"failed: {e}")
+
+    def _makeup_diff(self, cpd: str, cpx: str) -> None:
+        """Replay .idx entries appended after the compaction snapshot onto
+        the compacted copies (makeupDiff, volume_vacuum.go:200-280)."""
+        from .needle_map import read_needle_map
+
+        with open(self.nm.idx_path, "rb") as f:
+            f.seek(self._compact_idx_snapshot)
+            tail = f.read()
+        if not tail:
+            return
+        newdb = read_needle_map(cpx)
+        with open(cpd, "r+b") as dst:
+            for i in range(0, len(tail) - (types.NEEDLE_MAP_ENTRY_SIZE - 1),
+                           types.NEEDLE_MAP_ENTRY_SIZE):
+                key, off, size = types.unpack_needle_map_entry(
+                    tail[i : i + types.NEEDLE_MAP_ENTRY_SIZE]
+                )
+                if off != 0 and size >= 0:  # same liveness as _apply
+                    nv = NeedleValue(off, size)
+                    n = self._read_record(nv)
+                    dst.seek(0, 2)
+                    new_off = dst.tell()
+                    dst.write(n.to_bytes(self.version))
+                    newdb.set(key, types.offset_to_stored(new_off), n.size)
+                else:
+                    newdb.delete(key)
+        with open(cpx, "wb") as f:
+            f.write(newdb.to_sorted_bytes())
 
     # -- lifecycle ---------------------------------------------------------
 

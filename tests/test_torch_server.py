@@ -12,10 +12,12 @@ GETs (whole, Range, and 404 after VolumeEcBlobDelete), then
 VolumeEcShardsRebuild, a byte flipped in .ec03 that VolumeScrub finds and
 repairs, a clean stop, and VolumeEcShardsToVolume after a restart. Files
 must be byte-identical and responses equal (tolerance 0: GF arithmetic is
-exact). Each package's server also opens the other's directories. The
-deferred RPCs answer UNIMPLEMENTED; `python -m seaweedfs_tpu_torch volume
--coder cpu` serves as a process without JAX; both packages' protobuf
-files live in one process."""
+exact). Each package's server also opens the other's directories. A
+write and a delete to a volume with replication 001 reach the peer, and
+vacuum (VacuumVolumeCheck, Compact, Commit, Cleanup) compacts alike, with
+the same bytes in both packages. The deferred RPCs answer UNIMPLEMENTED;
+`python -m seaweedfs_tpu_torch volume -coder cpu` serves as a process
+without JAX; both packages' protobuf files live in one process."""
 
 import hashlib
 import http.client
@@ -105,6 +107,9 @@ PORT_NO = _free_port_pair()  # every lifecycle serves on this one address
 NOBODY = _free_port_pair()  # the master address: nothing listens there
 while NOBODY == PORT_NO:
     NOBODY = _free_port_pair()
+PEER_NO = _free_port_pair()  # the replica of the replication case
+while PEER_NO in (PORT_NO, NOBODY):
+    PEER_NO = _free_port_pair()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,20 +171,21 @@ def _response(method, path, headers=None) -> tuple:
 
 
 class _Server:
-    """One package's VolumeServer on PORT_NO, stopped so that the next
-    one can bind the same address."""
+    """One package's VolumeServer on PORT_NO (or `port`), stopped so that
+    the next one can bind the same address."""
 
-    def __init__(self, mods, d: str, coder):
+    def __init__(self, mods, d: str, coder, port: int = PORT_NO):
         self.mods = mods
+        self.port = port
         self.srv = mods["volume"].VolumeServer(
             directories=[d], master=f"localhost:{NOBODY}", ip="127.0.0.1",
-            port=PORT_NO, coder=coder, pulse_seconds=1,
+            port=port, coder=coder, pulse_seconds=1,
             ec_geometry=mods["Geometry"](large_block=LARGE,
                                          small_block=SMALL))
         self.srv.start()
         # a channel of its own: the cached ones may sit in reconnect
         # backoff from the server that held this address before
-        addr = f"127.0.0.1:{PORT_NO + 10000}"
+        addr = f"127.0.0.1:{port + 10000}"
         self.channel = grpc.insecure_channel(addr)
         self.stub = mods["rpc"].Stub(self.channel,
                                      mods["rpc"].VOLUME_SERVICE, addr)
@@ -187,7 +193,7 @@ class _Server:
     def stop(self) -> None:
         srv = self.srv
         self.channel.close()
-        _drop_conn(PORT_NO)
+        _drop_conn(self.port)
         srv.stop()
         srv._http_server.server_close()
         srv._grpc_server.stop(None).wait(10)
@@ -420,8 +426,7 @@ def test_each_server_opens_the_others_directory(code, direction,
 
 # -- what the port defers -----------------------------------------------------
 
-DEFERRED_RPCS = ("VacuumVolumeCompact", "VacuumVolumeCommit",
-                 "VacuumVolumeCleanup", "VolumeTierMoveDatToRemote",
+DEFERRED_RPCS = ("VolumeTierMoveDatToRemote",
                  "VolumeTierMoveDatFromRemote",
                  "VolumeEcShardsGenerateStreamed", "VolumeEcShardsStream",
                  "VolumeEcShardsStreamStatus", "FetchAndWriteNeedle",
@@ -487,9 +492,9 @@ def test_deferred_http_routes_answer_501(lone_server, path):
 
 
 def test_a_write_that_needs_peers_fails_loudly(lone_server, monkeypatch):
-    """Replicated writes are not ported: a write whose volume has peers
-    answers 500 instead of a local-only 201; a delete still acks its
-    durable tombstone but counts the skipped peer."""
+    """A write whose volume has a peer that is down answers 500, naming
+    the failed replica leg, instead of a local-only 201; a delete acks
+    its durable tombstone but counts the failed peer."""
     srv, stub, port = lone_server
     from seaweedfs_tpu_torch.utils.stats import VOLUME_REPLICA_DELETE_FAILURES
 
@@ -502,10 +507,232 @@ def test_a_write_that_needs_peers_fails_loudly(lone_server, monkeypatch):
     nid, cookie, data, _ = NEEDLES[1]
     fid = f"{VID + 1},{format_needle_id_cookie(nid, cookie)}"
     status, _, body = _request("POST", "/" + fid, data, port=port)
-    assert status == 500 and b"ROADMAP.md" in body
+    assert status == 500 and b"replica write to 127.0.0.1:1" in body
+    assert b"ROADMAP.md" not in body
     before = VOLUME_REPLICA_DELETE_FAILURES.value(peer=peer)
     assert _request("DELETE", "/" + fid, port=port)[0] == 202
     assert VOLUME_REPLICA_DELETE_FAILURES.value(peer=peer) == before + 1
+
+
+# -- replicated writes and vacuum, against the reference -----------------------
+
+REPLICA_VID = 6
+REPLICA_DELETED = (3, 8, 20)
+VACUUM_VID = 7
+VACUUM_DELETED = tuple(range(2, N_NEEDLES, 4))
+ROT_NEEDLE = 11
+
+
+def _fid_of(vid: int, nid: int, cookie: int) -> str:
+    return f"{vid},{format_needle_id_cookie(nid, cookie)}"
+
+
+def _replication(mods, root: str, coder) -> dict:
+    """A primary and its peer (replication 001): every needle POSTed to
+    the primary, some DELETEd there; -> both servers' files and GETs."""
+    da, db = os.path.join(root, "a"), os.path.join(root, "b")
+    os.mkdir(da)
+    os.mkdir(db)
+    a = _Server(mods, da, coder)
+    b = _Server(mods, db, coder, port=PEER_NO)
+    out = {}
+    try:
+        for s in (a, b):
+            s.stub.AllocateVolume(mods["vs"].AllocateVolumeRequest(
+                volume_id=REPLICA_VID, replication="001"), timeout=30)
+        locs = [a.srv.address, b.srv.address]
+        a.srv.lookup_volume_locations = lambda vid: locs
+        for nid, cookie, data, ctype in NEEDLES:
+            status, _, body = _request(
+                "POST", "/" + _fid_of(REPLICA_VID, nid, cookie), data,
+                {"Content-Type": ctype} if ctype else {})
+            assert status == 201, body
+        for i in REPLICA_DELETED:
+            nid, cookie = NEEDLES[i][:2]
+            assert _request("DELETE", "/" + _fid_of(REPLICA_VID, nid,
+                                                    cookie))[0] == 202
+        for s in (a, b):
+            s.stub.VolumeMarkReadonly(mods["vs"].VolumeMarkReadonlyRequest(
+                volume_id=REPLICA_VID), timeout=30)  # flushes the group
+        out["gets"] = {p: [_request("GET", "/" + _fid_of(REPLICA_VID, nid,
+                                                        cookie), port=p)[::2]
+                           for nid, cookie, _, _ in NEEDLES]
+                       for p in (PORT_NO, PEER_NO)}
+    finally:
+        for s in (a, b):
+            s.stop()
+    out["files"] = [{k: hashlib.sha256(v).hexdigest() for k, v in
+                     _files_of(d, REPLICA_VID, (".dat", ".idx")).items()}
+                    for d in (da, db)]
+    return out
+
+
+def _files_of(d: str, vid: int, exts) -> dict:
+    out = {}
+    for ext in exts:
+        p = os.path.join(d, f"{vid}{ext}")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[ext] = f.read()
+    return out
+
+
+def _vacuum(mods, root: str, coder) -> dict:
+    """Needles written and some deleted, then the vacuum RPCs in the
+    master's order (check, compact, commit), a second compact undone by
+    cleanup, and a compact that meets a rotten record."""
+    d = os.path.join(root, "data")
+    os.mkdir(d)
+    s = _Server(mods, d, coder)
+    v = mods["vs"]
+    out = {}
+    try:
+        st = s.stub
+        st.AllocateVolume(v.AllocateVolumeRequest(volume_id=VACUUM_VID,
+                                                  replication="000"),
+                          timeout=30)
+        for nid, cookie, data, _ in NEEDLES:
+            assert _request("POST", "/" + _fid_of(VACUUM_VID, nid, cookie),
+                            data)[0] == 201
+        for i in VACUUM_DELETED:
+            nid, cookie = NEEDLES[i][:2]
+            assert _request("DELETE", "/" + _fid_of(VACUUM_VID, nid,
+                                                    cookie))[0] == 202
+        out["before"] = _files_of(d, VACUUM_VID, (".dat", ".idx"))
+        out["check"] = st.VacuumVolumeCheck(v.VacuumVolumeCheckRequest(
+            volume_id=VACUUM_VID), timeout=30).garbage_ratio
+        out["compact"] = [r.processed_bytes for r in st.VacuumVolumeCompact(
+            v.VacuumVolumeCompactRequest(volume_id=VACUUM_VID), timeout=60)]
+        out["copies"] = _files_of(d, VACUUM_VID, (".cpd", ".cpx"))
+        r = st.VacuumVolumeCommit(v.VacuumVolumeCommitRequest(
+            volume_id=VACUUM_VID), timeout=60)
+        out["commit"] = (r.is_read_only, r.volume_size)
+        out["after"] = _files_of(d, VACUUM_VID,
+                                 (".dat", ".idx", ".cpd", ".cpx"))
+        # the verified vacuum is published as a completed scrub pass: a
+        # cursor and a fresh digest manifest, which VolumeDigest serves
+        out["published"] = _files_of(d, VACUUM_VID, (".dig", ".scb"))
+        out["digest"] = st.VolumeDigest(mods["scrub_pb2"].VolumeDigestRequest(
+            volume_id=VACUUM_VID, include_entries=True),
+            timeout=30).SerializeToString(deterministic=True)
+        out["check_after"] = st.VacuumVolumeCheck(v.VacuumVolumeCheckRequest(
+            volume_id=VACUUM_VID), timeout=30).garbage_ratio
+        out["gets"] = [_response("GET", "/" + _fid_of(VACUUM_VID, nid,
+                                                      cookie))
+                       for nid, cookie, _, _ in NEEDLES]
+        list(st.VacuumVolumeCompact(v.VacuumVolumeCompactRequest(
+            volume_id=VACUUM_VID), timeout=60))
+        out["pending"] = sorted(_files_of(d, VACUUM_VID, (".cpd", ".cpx")))
+        st.VacuumVolumeCleanup(v.VacuumVolumeCleanupRequest(
+            volume_id=VACUUM_VID), timeout=30)
+        out["cleaned"] = sorted(_files_of(d, VACUUM_VID, (".cpd", ".cpx")))
+        out["compacting"] = s.srv.store.find_volume(VACUUM_VID).is_compacting
+        # rot in a live record: the scrub-aware compact refuses to copy it
+        vol = s.srv.store.find_volume(VACUUM_VID)
+        nid = NEEDLES[ROT_NEEDLE][0]
+        nv = vol.nm.get(nid)
+        from seaweedfs_tpu_torch.storage import types
+
+        at = types.stored_to_actual_offset(nv.offset) + \
+            types.NEEDLE_HEADER_SIZE + 8
+        with open(os.path.join(d, f"{VACUUM_VID}.dat"), "r+b") as f:
+            f.seek(at)
+            b = f.read(1)
+            f.seek(at)
+            f.write(bytes([b[0] ^ 0x10]))
+        suspects = []  # what the handler queues for the repair ladder
+        s.srv.scrubber.report_suspect = suspects.append
+        with pytest.raises(grpc.RpcError) as e:
+            list(st.VacuumVolumeCompact(v.VacuumVolumeCompactRequest(
+                volume_id=VACUUM_VID), timeout=60))
+        out["rot"] = (e.value.code(), e.value.details())
+        out["rot_suspect"] = suspects == [VACUUM_VID]
+        out["rot_left"] = _files_of(d, VACUUM_VID, (".dat", ".idx"))
+    finally:
+        s.stop()
+    return out
+
+
+_CASES: dict = {}
+
+
+def _case(kind: str, pkg: str, tmp_path_factory) -> dict:
+    key = (kind, pkg)
+    if key not in _CASES:
+        with pytest.MonkeyPatch.context() as mp:
+            for mod in (ref_needle, needle):
+                mp.setattr(mod, "time", Clock())
+            root = str(tmp_path_factory.mktemp(f"{kind}-{pkg}"))
+            mods, coder = ((REF, ref_new_coder(10, 4, "cpu")) if pkg == "ref"
+                           else (PORT, RSCodecTorch(10, 4, device="cpu")))
+            _CASES[key] = (_replication if kind == "replication"
+                           else _vacuum)(mods, root, coder)
+    return _CASES[key]
+
+
+def test_replicated_writes_and_deletes_reach_the_peer(tmp_path_factory):
+    ref = _case("replication", "ref", tmp_path_factory)
+    port = _case("replication", "port", tmp_path_factory)
+    assert port == ref
+    for p in (PORT_NO, PEER_NO):
+        for i, ((nid, _, data, _), got) in enumerate(
+                zip(NEEDLES, port["gets"][p])):
+            assert got == ((404, got[1]) if i in REPLICA_DELETED
+                           else (200, data)), (p, nid)
+
+
+def test_vacuum_check_and_compact_match_the_reference(tmp_path_factory):
+    ref = _case("vacuum", "ref", tmp_path_factory)
+    port = _case("vacuum", "port", tmp_path_factory)
+    assert port["check"] == ref["check"] > 0.1
+    assert port["compact"] == ref["compact"]
+    assert set(port["copies"]) == {".cpd", ".cpx"}
+    assert _sha(port["copies"]) == _sha(ref["copies"])
+    assert _sha(port["before"]) == _sha(ref["before"])
+
+
+def test_vacuum_commit_swaps_in_the_same_volume(tmp_path_factory):
+    ref = _case("vacuum", "ref", tmp_path_factory)
+    port = _case("vacuum", "port", tmp_path_factory)
+    assert port["commit"] == ref["commit"]
+    assert set(port["after"]) == {".dat", ".idx"}
+    assert _sha(port["after"]) == _sha(ref["after"])
+    assert len(port["after"][".dat"]) < len(port["before"][".dat"])
+    assert port["after"][".dat"][8:] == port["copies"][".cpd"][8:]
+    assert port["check_after"] == ref["check_after"] == 0
+    assert port["gets"] == ref["gets"]
+    for i, ((nid, _, data, _), got) in enumerate(zip(NEEDLES, port["gets"])):
+        assert got[0] == (404 if i in VACUUM_DELETED else 200), nid
+        if i not in VACUUM_DELETED:
+            assert got[1] == data
+
+
+def test_vacuum_publishes_a_scrub_pass_and_digest(tmp_path_factory):
+    """The committed vacuum's digest manifest and the VolumeDigest answer
+    over the compacted volume, as the reference writes and serves them."""
+    ref = _case("vacuum", "ref", tmp_path_factory)
+    port = _case("vacuum", "port", tmp_path_factory)
+    assert set(port["published"]) == set(ref["published"]) == {".dig",
+                                                                ".scb"}
+    assert port["published"][".dig"] == ref["published"][".dig"]
+    assert port["digest"] == ref["digest"]
+
+
+def test_vacuum_cleanup_drops_an_uncommitted_compaction(tmp_path_factory):
+    ref = _case("vacuum", "ref", tmp_path_factory)
+    port = _case("vacuum", "port", tmp_path_factory)
+    assert port["pending"] == ref["pending"] == [".cpd", ".cpx"]
+    assert port["cleaned"] == ref["cleaned"] == []
+    assert port["compacting"] is ref["compacting"] is False
+
+
+def test_vacuum_refuses_to_copy_a_rotten_record(tmp_path_factory):
+    ref = _case("vacuum", "ref", tmp_path_factory)
+    port = _case("vacuum", "port", tmp_path_factory)
+    assert port["rot"] == ref["rot"]
+    assert "failed CRC re-verify" in port["rot"][1]
+    assert port["rot_suspect"] and ref["rot_suspect"]
+    assert _sha(port["rot_left"]) == _sha(ref["rot_left"])
 
 
 @pytest.mark.parametrize("how", ["native", "env", "tier"])
