@@ -101,24 +101,38 @@ and prints no result without them. Phases, each printing its own line:
                      seeded 10% deleted through the primary, then
                      `volume.vacuum -garbageThreshold 0.05` (both replicas
                      compact and commit; every needle read back from each,
-                     byte-exact or 404); `lock; ec.encode; unlock` (K1 at
-                     R = 4 on the source, shards copied rack-aware 4/4/3/3,
-                     both replicas deleted; 14 shard sha256s wherever they
-                     landed against the numpy cpu coder; volume.list shows
-                     the EC volume on all four servers); SIGKILL of a
+                     byte-exact or 404); `lock; ec.encode; unlock`, the
+                     default streamed path (placement first, then K1 at
+                     R = 4 on the source while it streams each
+                     destination's shards to it, rack-aware 4/4/3/3, both
+                     replicas deleted; no destination resumed or fell
+                     back to the copy; 14 shard sha256s wherever they
+                     landed against the numpy cpu coder; each
+                     destination's .dig manifest against its files; the
+                     source's stream counters; every server's CRC-32C
+                     compiled; volume.list shows the EC volume on all
+                     four servers); SIGKILL of a
                      server holding 4 shards and 8 readers GET every
                      surviving needle through MasterClient lookups
                      (degraded reads gather survivors from the other
                      servers over VolumeEcShardRead); a fresh empty server
                      and `ec.rebuild` (sha-identical); a byte flipped in a
                      shard on disk found and repaired by `volume.scrub
-                     -full`, a second pass clean; `ec.decode` and every
-                     needle GET again; a second collection of 128 MiB
-                     encoded with `-dataShards 6 -parityShards 3` (BASELINE
-                     config #5), a server lost, every needle GET
+                     -full`, a second pass clean; config #4: four volumes
+                     of 128 MiB in collection c4 streamed at once by
+                     `ec.encode -collection c4 -fullPercent 10` while the
+                     fresh server (its SWFS_FAILPOINTS) drops one incoming
+                     stream once a third into a shard: exactly one resume,
+                     fewer bytes than its share, shards against the numpy
+                     cpu coder, every needle GET through lookups;
+                     `ec.decode` and every needle GET again; a second
+                     collection of 128 MiB encoded by the copy path
+                     (`-stream 0`) with `-dataShards 6 -parityShards 3`
+                     (BASELINE config #5), a server lost, every needle GET
                      byte-exact; SIGTERM to every process: exit 0, no
-                     dirty marker. Each step's wall and rate, and K1's
-                     launches by R summed from every server's /metrics
+                     dirty marker. Each step's wall and rate, K1's
+                     launches by R summed from every server's /metrics,
+                     and the host's NUMA layout
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
 pipeline phases (a short loop for one kernel; K1's are pipeline, store,
@@ -164,6 +178,7 @@ from seaweedfs_tpu_torch.ops import _build, dispatch, gf256, gfmat, rs_bits, \
 from seaweedfs_tpu_torch.ops.rs_torch import RSCodecTorch
 from seaweedfs_tpu_torch.pb import ec_geometry_pb2, rpc, scrub_pb2
 from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs
+from seaweedfs_tpu_torch.scrub import digest
 from seaweedfs_tpu_torch.storage import crc, ec_files, idx, recovery, types
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry, locate_data
 from seaweedfs_tpu_torch.storage.ec_volume import (EcVolume, rebuild_ecx_file,
@@ -171,6 +186,7 @@ from seaweedfs_tpu_torch.storage.ec_volume import (EcVolume, rebuild_ecx_file,
 from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.utils import numa
 from seaweedfs_tpu_torch.utils import stats as ec_stats
 
 # sha256 of each shard row of RS(10,4) over rng(0xEC) [10, 4096] — the
@@ -902,9 +918,12 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
         lanes1 = _lane_counts()
-        checked = [check_shards(phase, b, geo, workdir) for b in bases]
-        hashes = [h for h, _ in checked]
-        oracle_s = sum(t for _, t in checked)
+        # the oracles run at once: numpy's table lookups and XORs leave
+        # the interpreter lock, so they overlap on the host's cores
+        t0 = time.perf_counter()
+        hashes = [h for h, _ in _all_at_once(
+            lambda b: check_shards(phase, b, geo, workdir), bases)]
+        oracle_s = time.perf_counter() - t0
         tot = {f: sum(getattr(st, f) for st in enc_stats)
                for f in ("bytes", "batches", "wall_s", "read_s",
                          "dispatch_s", "device_wait_s", "write_s")}
@@ -918,7 +937,7 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
                    f"{tot['device_wait_s']:.3f} s, write "
                    f"{tot['write_s']:.3f} thread-s; "
                    f"{n_volumes * geo.total_shards} shard sha256s match the "
-                   f"numpy cpu coder ({oracle_s:.1f} s)")
+                   f"numpy cpu coder ({oracle_s:.1f} s, {n_volumes} at once)")
 
         def rebuild(base):
             for i in REBUILD_LOST:
@@ -1268,8 +1287,7 @@ def _status(port: int) -> dict:
     return json.loads(body)
 
 
-def _kernel_launches(port: int) -> dict:
-    """{(kernel, rows or ""): launches} from the server's /metrics."""
+def _metrics(port: int) -> str:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
     try:
         status, body = _http(conn, "GET", "/metrics")
@@ -1277,12 +1295,44 @@ def _kernel_launches(port: int) -> dict:
         conn.close()
     if status != 200:
         raise AssertionError(f"server: /metrics answered {status}")
+    return body.decode()
+
+
+def _kernel_launches(port: int) -> dict:
+    """{(kernel, rows or ""): launches} from the server's /metrics."""
     out = {}
-    for line in body.decode().splitlines():
+    for line in _metrics(port).splitlines():
         m = re.match(r'SeaweedFS_ec_kernel_launches\{kernel="(\w+)"'
                      r'(?:,rows="(\d+)")?\} (\S+)$', line)
         if m:
             out[(m.group(1), m.group(2) or "")] = int(float(m.group(3)))
+    return out
+
+
+def _stream_counters(port: int) -> dict:
+    """{"name{labels}": value} of the server's SeaweedFS_ec_stream_*
+    counters and gauges, from its /metrics."""
+    out = {}
+    for line in _metrics(port).splitlines():
+        m = re.match(r"SeaweedFS_ec_stream_(\w+?(?:\{[^}]*\})?) (\S+)$", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+# the gauges among them: read as they are after a step, not as a change
+STREAM_GAUGES = ("overlap_ratio", "inflight_bytes")
+
+
+def _stream_step(before: dict, after: dict) -> dict:
+    """One step's stream counters: each counter's change, each gauge's
+    value after; only what is not 0."""
+    out = {}
+    for key in sorted(after):
+        v = after[key] if key.startswith(STREAM_GAUGES) else \
+            after[key] - before.get(key, 0.0)
+        if v:
+            out[key] = int(v) if v == int(v) else round(v, 4)
     return out
 
 
@@ -1559,6 +1609,9 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 CLUSTER_VOLUME_MB = 1000  # needle bytes: the .dat stays under the limit
 CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
 CLUSTER_SMALL_MB = 128  # config #5's collection
+CLUSTER_MULTI = 4  # config #4: volumes streamed at once (-parallelEncode)
+CLUSTER_MULTI_MB = 128  # needle bytes of each
+CLUSTER_MULTI_FULL = 10  # ec.encode -fullPercent that selects them
 CLUSTER_RACKS = ("r0", "r0", "r1", "r1")
 CLUSTER_DELETED = 0.10  # the share of needles deleted before the vacuum
 CLUSTER_CALL_S = 1200  # the longest a shell command may take
@@ -1586,11 +1639,13 @@ class _Fleet:
         self.master = f"127.0.0.1:{self.master_port}"
         self.k1_gone: dict[int, int] = {}  # K1 by R of killed servers
 
-    def _spawn(self, name: str, args: list[str], port: int, d: str):
+    def _spawn(self, name: str, args: list[str], port: int, d: str,
+               env: dict | None = None):
         log_f = open(os.path.join(self.root, f"{name}.log"), "wb")
         proc = subprocess.Popen(
             [sys.executable, "-m", "seaweedfs_tpu_torch"] + args, cwd=HERE,
-            env=self.env, stdout=log_f, stderr=subprocess.STDOUT)
+            env={**self.env, **(env or {})}, stdout=log_f,
+            stderr=subprocess.STDOUT)
         self.procs[name] = (proc, log_f, port, d)
 
     def spawn_master(self) -> None:
@@ -1599,7 +1654,10 @@ class _Fleet:
                                str(CLUSTER_LIMIT_MB), "-defaultReplication",
                                "001"], self.master_port, "")
 
-    def spawn_volume(self, name: str, rack: str) -> None:
+    def spawn_volume(self, name: str, rack: str,
+                     env: dict | None = None) -> None:
+        """A volume server; `env` adds to the fleet's environment for
+        this process alone."""
         port = _free_port_pair()
         while port == self.master_port or port in self.ports():
             port = _free_port_pair()
@@ -1608,10 +1666,30 @@ class _Fleet:
         self.rack_of[f"127.0.0.1:{port}"] = rack
         self._spawn(name, ["volume", "-dir", d, "-ip", "127.0.0.1",
                            "-port", str(port), "-mserver", self.master,
-                           "-rack", rack], port, d)
+                           "-rack", rack], port, d, env)
 
     def ports(self) -> list[int]:
         return [p for _, _, p, _ in self.procs.values()]
+
+    @staticmethod
+    def port_of(address: str) -> int:
+        return int(address.rsplit(":", 1)[1])
+
+    def stream_counters(self) -> dict[str, dict]:
+        """{address: _stream_counters} of every running volume server."""
+        return {a: _stream_counters(self.port_of(a)) for a in self.volumes()}
+
+    def crc_kernels(self) -> dict[str, str]:
+        """The CRC-32C kernel each running volume server reports; fails
+        unless every one is compiled (the streamed encode CRCs every
+        slab once at the source and twice at its destination)."""
+        got = {a: _status(self.port_of(a))["EcStream"]["crc32c"]
+               for a in self.volumes()}
+        slow = {a: k for a, k in got.items()
+                if k not in ("native", "google_crc32c")}
+        if slow:
+            raise AssertionError(f"{self.phase}: CRC-32C runs in {slow}")
+        return got
 
     def volumes(self) -> dict[str, tuple]:
         """{address: (name, dir)} of the running volume servers."""
@@ -1748,7 +1826,8 @@ def _in_threads(work, items) -> list:
 
 
 def _submit_all(phase: str, master: str, collection: str, needles,
-                payload: bytes) -> tuple[list[str], float]:
+                payload: bytes, replication: str = "001"
+                ) -> tuple[list[str], float]:
     """Every needle through operation.submit by 8 clients; -> (fids,
     seconds)."""
     from seaweedfs_tpu_torch.operation import submit
@@ -1756,7 +1835,7 @@ def _submit_all(phase: str, master: str, collection: str, needles,
     def one(needle):
         start, size = needle
         r = submit(master, payload[start:start + size],
-                   collection=collection, replication="001")
+                   collection=collection, replication=replication)
         if "error" in r:
             raise AssertionError(f"{phase}: submit: {r['error']}")
         return r["fid"]
@@ -1820,6 +1899,69 @@ def _check_ec(phase: str, fleet: _Fleet, base_name: str, geo: Geometry,
     return {sid: addr for sid, (addr, _) in files.items()}
 
 
+def _file_crc(path: str) -> tuple[int, int]:
+    """(size, CRC-32C) of a file, read in 8 MiB chunks."""
+    c = n = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(8 * MIB):
+            c = crc.crc32c(chunk, c)
+            n += len(chunk)
+    return n, c
+
+
+def _check_manifests(phase: str, fleet: _Fleet, base_name: str,
+                     geo: Geometry, source: str) -> dict[str, list[int]]:
+    """Each destination of a streamed encode holds a `.dig` manifest of
+    exactly its shards, each entry the size and CRC-32C of the shard
+    file on disk; -> {destination: shard ids}."""
+    out = {}
+    for addr, (_, d) in sorted(fleet.volumes().items()):
+        base = os.path.join(d, base_name)
+        sids = [s for s in range(geo.total_shards)
+                if os.path.exists(geo.shard_file_name(base, s))]
+        if addr == source or not sids:
+            continue
+        if not os.path.exists(base + ".dig"):
+            raise AssertionError(f"{phase}: no {base_name}.dig on {addr}")
+        manifest = digest.read_ec_manifest(base + ".dig")
+        if sorted(manifest) != sids:
+            raise AssertionError(f"{phase}: {base_name}.dig on {addr} lists "
+                                 f"{sorted(manifest)}, the disk {sids}")
+        for sid in sids:
+            got = _file_crc(geo.shard_file_name(base, sid))
+            want = (manifest[sid].size, manifest[sid].crc)
+            if got != want:
+                raise AssertionError(f"{phase}: shard {sid} of {base_name} "
+                                     f"on {addr} is (size, crc) {got}, its "
+                                     f"manifest says {want}")
+        out[addr] = sids
+    return out
+
+
+# the shell's line for one streamed volume
+STREAMED_LINE = re.compile(
+    r"volume (\d+): streamed (\d+) shards from (\S+) \((\d+) bytes "
+    r"overlapped, overlap ratio ([\d.]+)(?:, (\d+) resume\(s\))?"
+    r"(, fallback copy for .*)?\)")
+
+
+def _streamed(phase: str, out: str) -> dict[int, dict]:
+    """{vid: the streamed line's figures} from an ec.encode's output;
+    fails if a destination fell back to the copy."""
+    got = {}
+    for m in STREAMED_LINE.finditer(out):
+        got[int(m.group(1))] = dict(
+            source=m.group(3), overlapped=int(m.group(4)),
+            ratio=float(m.group(5)), resumes=int(m.group(6) or 0),
+            line=m.group(0))
+        if m.group(7):
+            raise AssertionError(f"{phase}: a destination fell back to the "
+                                 f"copy: {m.group(0)}")
+    if not got or "fallback" in out:
+        raise AssertionError(f"{phase}: ec.encode did not stream:\n{out}")
+    return got
+
+
 def _wait_ec(fleet: _Fleet, vid: int, shards: int, plain: bool) -> None:
     """Wait until the master's topology shows `shards` EC shards of `vid`
     and (`plain`) or not its plain replicas."""
@@ -1846,9 +1988,142 @@ def _wait_ec(fleet: _Fleet, vid: int, shards: int, plain: bool) -> None:
         time.sleep(0.3)
 
 
+def _wait_sizes(fleet: _Fleet, collection: str, want: int,
+                full: float) -> dict[int, int]:
+    """Wait until the master lists `want` volumes of `collection`, each
+    at least `full` of the size limit (heartbeats carry the sizes);
+    -> {vid: size}."""
+    from seaweedfs_tpu_torch.pb import master_pb2
+
+    stub = rpc.master_stub(rpc.grpc_address(fleet.master))
+    t0 = time.perf_counter()
+    while True:
+        topo = stub.VolumeList(master_pb2.VolumeListRequest(),
+                               timeout=60).topology_info
+        sizes = {v.id: v.size for dc in topo.data_center_infos
+                 for rack in dc.rack_infos for dn in rack.data_node_infos
+                 for disk in dn.disk_infos.values()
+                 for v in disk.volume_infos if v.collection == collection}
+        if len(sizes) == want and min(sizes.values()) >= \
+                full * CLUSTER_LIMIT_MB * MIB:
+            return sizes
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"cluster: the master lists {sizes} of "
+                                 f"{collection}")
+        time.sleep(0.3)
+
+
+def _multi_stream(phase: str, fleet: _Fleet, rng, payload: bytes,
+                  workdir: str, root: str, empty_s: float, fresh: str,
+                  flap_at: list[int]) -> dict:
+    """Config #4 as an operator runs it: CLUSTER_MULTI volumes of a new
+    collection, CLUSTER_MULTI_MB of needles each by 8 clients, then one
+    `ec.encode -collection -fullPercent 10` that streams them at once
+    (-parallelEncode 4: four VolumeEcShardsGenerateStreamed from their
+    sources on one card), while the fresh server drops one incoming
+    stream once (its SWFS_FAILPOINTS, at a slab offset in `flap_at`).
+    Fails unless exactly that one stream resumed, re-sending less than
+    that destination's share, nothing fell back to the copy, every shard
+    equals the numpy coder's, every manifest its files, and every needle
+    reads back byte-exact through lookups; -> {"gbps": aggregate}."""
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    col, geo = "c4", Geometry()
+    fleet.shell(f"volume.grow -collection {col} -replication 000 -count "
+                f"{CLUSTER_MULTI}")
+    needles = _seeded_needles(rng, CLUSTER_MULTI * CLUSTER_MULTI_MB, payload)
+    fids, write_s = _submit_all(phase, fleet.master, col, needles, payload,
+                                replication="000")
+    total = sum(size for _, size in needles)
+    sizes = _wait_sizes(fleet, col, CLUSTER_MULTI, CLUSTER_MULTI_FULL / 100)
+    mc = MasterClient(fleet.master)
+    keep, sources = {}, {}
+    for vid in sizes:
+        sources[vid], = [loc.url for loc in mc.lookup_volume(vid)]
+        keep[vid] = os.path.join(root, f"{col}_{vid}")
+        d = fleet.volumes()[sources[vid]][1]
+        for ext in (".dat", ".idx"):
+            os.link(os.path.join(d, f"{col}_{vid}{ext}"), keep[vid] + ext)
+    dat = sum(os.path.getsize(b + ".dat") for b in keep.values())
+    k0, s0 = fleet.k1(), fleet.stream_counters()
+    src_k0 = {a: _kernel_launches(fleet.port_of(a))
+              for a in set(sources.values())}
+    out, wall = fleet.shell("lock", f"ec.encode -collection {col} "
+                                    f"-fullPercent {CLUSTER_MULTI_FULL}",
+                                    "unlock")
+    said = _streamed(phase, out)
+    for vid in sizes:
+        _wait_ec(fleet, vid, geo.total_shards, plain=False)
+    k1, s1 = fleet.k1(), fleet.stream_counters()
+    src_r4 = {a: _kernel_launches(fleet.port_of(a)).get(("gf_xor", "4"), 0)
+              - before.get(("gf_xor", "4"), 0)
+              for a, before in sorted(src_k0.items())}
+    if not all(src_r4.values()):
+        raise AssertionError(f"{phase}: a source did not launch K1 at "
+                             f"R = 4: {src_r4}")
+    steps = {a: _stream_step(s0.get(a, {}), s1[a]) for a in s1}
+    resumes = {(a, k): v for a, st in steps.items() for k, v in st.items()
+               if k.startswith("resumes")}
+    resumed = sum(st.get('bytes{phase="resume",role="source"}', 0)
+                  for st in steps.values())
+    flapped = [vid for vid, x in said.items() if x["resumes"]]
+    t0 = time.perf_counter()
+    oracles = dict(zip(sizes, _all_at_once(
+        lambda vid: cpu_oracle_hashes(keep[vid], geo, workdir), sizes)))
+    oracle_s = time.perf_counter() - t0
+    manifests = {}
+    for vid in sizes:
+        _check_ec(phase, fleet, f"{col}_{vid}", geo, oracles[vid])
+        manifests[vid] = _check_manifests(phase, fleet, f"{col}_{vid}", geo,
+                                          sources[vid])
+    want = {(said[v]["source"], f'resumes{{peer="{fresh}"}}'): 1
+            for v in flapped}
+    if sorted(said) != sorted(sizes) or len(flapped) != 1 or \
+            resumes != want:
+        raise AssertionError(f"{phase}: want {CLUSTER_MULTI} volumes "
+                             f"streamed, one stream to {fresh} resumed once: "
+                             f"{said}, resumes {resumes}")
+    vid = flapped[0]
+    share = len(manifests[vid].get(fresh, [])) * geo.shard_size(
+        os.path.getsize(keep[vid] + ".dat"))
+    if not 0 < resumed < share:
+        raise AssertionError(f"{phase}: the resume re-sent {resumed} B of "
+                             f"{fresh}'s share of {share} B")
+    crcs = fleet.crc_kernels()
+    mc = MasterClient(fleet.master)
+    got = _get_each(phase, mc.lookup_file_id,
+                    [(f, *n) for f, n in zip(fids, needles)], payload)
+    gbps = dat / (wall - empty_s) / 1e9
+    log(phase, f"config #4: volume.grow of {CLUSTER_MULTI} volumes of "
+               f"{col} (000); {len(needles)} needles ({total} B) through "
+               f"operation.submit by {SERVER_CLIENTS} clients in "
+               f"{write_s:.3f} s, sizes {sizes}; shell lock; ec.encode "
+               f"-collection {col} -fullPercent {CLUSTER_MULTI_FULL}; "
+               f"unlock: {wall:.3f} s "
+               f"= {gbps:.3f} GB/s of .dat ({dat} B) beyond an empty shell; "
+               f"overlap ratio by volume "
+               f"{ {v: x['ratio'] for v, x in sorted(said.items())} }; "
+               f"{fresh} dropped a stream of volume {vid} once at a slab "
+               f"offset in {flap_at}: 1 resume re-sent {resumed} B of its "
+               f"{share} B share; no fallback; "
+               f"{geo.total_shards * CLUSTER_MULTI} shard sha256s match the "
+               f"numpy cpu coder ({oracle_s:.1f} s, {CLUSTER_MULTI} at "
+               f"once), every destination's .dig its files; stream counters "
+               f"by server {steps}; every needle GET byte-exact through "
+               f"MasterClient lookups by {SERVER_CLIENTS} readers "
+               f"({_ms(got)}); K1 launches at R = 4 by source {src_r4}, "
+               f"by R on every server {_k1_step(k0, k1)}; CRC-32C by "
+               f"server {crcs}")
+    return dict(gbps=gbps)
+
+
 def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The operator's path through a cluster of processes on the card
-    (see the module docstring); -> K1's launches."""
+    (see the module docstring); -> K1's launches. Which encode runs
+    where: the 1000 MiB volume of c1 and the four volumes of c4 take the
+    default, streamed path (VolumeEcShardsGenerateStreamed on each source,
+    K1 there while the shards stream); the RS(6,3) volume of c5 the copy
+    path (`-stream 0`: VolumeEcShardsGenerate, then VolumeEcShardsCopy)."""
     from seaweedfs_tpu_torch.pb import master_pb2
     from seaweedfs_tpu_torch.wdclient import MasterClient, pool
 
@@ -1866,13 +2141,17 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                                            range(len(CLUSTER_RACKS))])
         rpc.reset_channels()  # no channel dialled before the listeners
         _, empty_s = fleet.shell("volume.list")
+        nodes = [f"{n[0]}-{n[-1]}" if n[-1] - n[0] + 1 == len(n) else n
+                 for n in numa.node_cpus()]
         log(phase, f"one master (-volumeSizeLimitMB {CLUSTER_LIMIT_MB} "
                    f"-defaultReplication 001) and {len(CLUSTER_RACKS)} "
                    f"volume servers (default coder, racks "
                    f"{'/'.join(CLUSTER_RACKS)}) started at once: all "
                    f"registered in {up_s:.2f} s; K1's library was "
                    f"{'already built' if cached else 'not built yet'}; an "
-                   f"empty shell process takes {empty_s:.2f} s")
+                   f"empty shell process takes {empty_s:.2f} s; the host's "
+                   f"NUMA layout: {len(nodes)} node(s), CPUs {nodes} "
+                   f"(pinning gate SWFS_EC_DISPATCH_PIN off)")
 
         # 1. writes: one volume with a same-rack replica, 8 clients
         out, _ = fleet.shell("volume.grow -collection c1 -replication 001 "
@@ -1947,19 +2226,29 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"every needle read back from each replica, byte-exact "
                    f"or 404 ({_ms(back_ms)})")
 
-        # 3. ec.encode from the shell
-        src_name, src_dir = fleet.volumes()[replicas[0]]
+        # 3. ec.encode from the shell: the default, streamed path (the
+        # source streams each destination's shards while K1 runs)
+        source = replicas[0]
+        src_name, src_dir = fleet.volumes()[source]
         base_name = f"c1_{vid}"
         keep = os.path.join(root, "source")
         for ext in (".dat", ".idx"):
             os.link(os.path.join(src_dir, base_name + ext), keep + ext)
         dat_bytes = os.path.getsize(keep + ".dat")
         k0 = fleet.k1()
+        src_k0 = _kernel_launches(fleet.port_of(source))
+        s0 = _stream_counters(fleet.port_of(source))
         out, enc_s = fleet.shell("lock", f"ec.encode -volumeId {vid}",
                                  "unlock")
         spread = [x for x in out.splitlines() if "shards spread" in x]
+        said = _streamed(phase, out)[vid]
         _wait_ec(fleet, vid, 14, plain=False)
         k1 = fleet.k1()
+        src_k1 = {int(r): n - src_k0.get((k, r), 0)
+                  for (k, r), n in _kernel_launches(
+                      fleet.port_of(source)).items()
+                  if k == "gf_xor" and r and n - src_k0.get((k, r), 0)}
+        sstep = _stream_step(s0, _stream_counters(fleet.port_of(source)))
         geo = Geometry()
         t0 = time.perf_counter()
         oracle = cpu_oracle_hashes(keep, geo, workdir)
@@ -1973,18 +2262,33 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         by_server: dict[str, list[int]] = {}
         for sid, a in sorted(where.items()):
             by_server.setdefault(a, []).append(sid)
+        manifests = _check_manifests(phase, fleet, base_name, geo, source)
+        crcs = fleet.crc_kernels()
         enc_k1 = _k1_step(k0, k1)
-        log(phase, f"shell lock; ec.encode -volumeId {vid}; unlock: "
-                   f"{enc_s:.3f} s = {dat_bytes / (enc_s - empty_s) / 1e9:.3f}"
-                   f" GB/s of .dat beyond an empty shell ({dat_bytes} B; "
-                   f"generate on {replicas[0]}, copy, mount, delete both "
-                   f"replicas); {spread[0].lstrip('> ') if spread else ''}; 14 "
-                   f"shard sha256s match the numpy cpu coder "
-                   f"({oracle_s:.1f} s); volume.list shows the EC volume "
-                   f"on all {holders} servers; K1 launches by R {enc_k1}")
-        if not enc_k1.get(4):
+        log(phase, f"shell lock; ec.encode -volumeId {vid}; unlock (the "
+                   f"default, streamed): {enc_s:.3f} s = "
+                   f"{dat_bytes / (enc_s - empty_s) / 1e9:.3f} GB/s of .dat "
+                   f"beyond an empty shell ({dat_bytes} B; placement, then "
+                   f"VolumeEcShardsGenerateStreamed on {source} streaming "
+                   f"each destination's shards while it encodes, index "
+                   f"copies, mounts, both replicas deleted); the shell: "
+                   f"\"{said['line']}\"; "
+                   f"{spread[0].lstrip('> ') if spread else ''}; 14 shard "
+                   f"sha256s match the numpy cpu coder ({oracle_s:.1f} s); "
+                   f"the .dig manifests of {len(manifests)} destinations "
+                   f"hold each shard's size and CRC-32C as on disk; "
+                   f"volume.list shows the EC volume on all {holders} "
+                   f"servers; the source's stream counters {sstep}; K1 "
+                   f"launches by R on the source {src_k1}, on every server "
+                   f"{enc_k1}; CRC-32C by server {crcs}")
+        if not src_k1.get(4):
             raise AssertionError(f"{phase}: ec.encode did not launch K1 at "
-                                 f"R = 4: {enc_k1}")
+                                 f"R = 4 on the source: {src_k1}")
+        if sstep.get('streams{outcome="failed"}') or said["resumes"] or \
+                len(manifests) != len(CLUSTER_RACKS) - 1:
+            raise AssertionError(f"{phase}: the streamed encode resumed, "
+                                 f"failed or missed a destination: {sstep}, "
+                                 f"{said}, manifests {manifests}")
 
         # 4. the server that holds 4 shards lost; 8 readers through lookups
         victim = next(a for a, sids in sorted(by_server.items())
@@ -2018,9 +2322,19 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             raise AssertionError(f"{phase}: the degraded GETs never launched "
                                  f"K1")
 
-        # 5. a fresh, empty server in the lost one's rack; ec.rebuild
-        fleet.spawn_volume("v4", fleet.rack_of[victim])
+        # 5. a fresh, empty server in the lost one's rack; ec.rebuild. It
+        # drops one incoming shard stream once, at a slab about a third
+        # into a config #4 volume's shards (step 6b): wire chunks are one
+        # or two slabs, so of two slab offsets in a row one starts a chunk
+        slab = ec_files._pick_batch(geo.small_block,
+                                    ec_files.DEFAULT_BATCH_SIZE)
+        third = CLUSTER_MULTI_MB * MIB // geo.data_shards // 3 // slab * slab
+        flap_at = [max(slab, third) + i * slab for i in range(3)]
+        fleet.spawn_volume("v4", fleet.rack_of[victim], env={
+            "SWFS_FAILPOINTS": "ec.stream.slab=error(1.0x1)@" + "|".join(
+                f"off={o}," for o in flap_at)})
         fresh_s = fleet.wait_up(["v4"])
+        fresh = next(a for a, (n, _) in fleet.volumes().items() if n == "v4")
         out, reb_s = fleet.shell("lock", f"ec.rebuild -volumeId {vid}",
                                  "unlock")
         k4 = fleet.k1()
@@ -2074,6 +2388,11 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"second pass found none; shards sha-identical; K1 "
                    f"launches by R {_k1_step(k4, k5)}")
 
+        # 6b. config #4: volumes streamed at once, the fresh server flapping
+        multi = _multi_stream(phase, fleet, rng, payload, workdir, root,
+                              empty_s, fresh, flap_at)
+        k5 = fleet.k1()
+
         # 7. ec.decode back to a plain volume; every needle GET once more
         out, dec_s = fleet.shell("lock", f"ec.decode -volumeId {vid}",
                                  "unlock")
@@ -2107,7 +2426,9 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                                  f"c5_{svid}{ext}"), skeep + ext)
         out, senc_s = fleet.shell(
             "lock", f"ec.encode -volumeId {svid} -dataShards 6 "
-                    f"-parityShards 3", "unlock")
+                    f"-parityShards 3 -stream 0", "unlock")
+        if "generated 9 shards" not in out or "streamed" in out:
+            raise AssertionError(f"{phase}: ec.encode -stream 0 said:\n{out}")
         _wait_ec(fleet, svid, SMALL_GEO.total_shards, plain=False)
         soracle = cpu_oracle_hashes(skeep, SMALL_GEO, workdir)
         swhere = _check_ec(phase, fleet, f"c5_{svid}", SMALL_GEO, soracle)
@@ -2123,7 +2444,8 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         sbytes = os.path.getsize(skeep + ".dat")
         log(phase, f"config #5: {len(small)} needles in collection c5 "
                    f"({swrite_s:.3f} s); shell ec.encode -volumeId {svid} "
-                   f"-dataShards 6 -parityShards 3: {senc_s:.3f} s "
+                   f"-dataShards 6 -parityShards 3 -stream 0 (generate, "
+                   f"then copy): {senc_s:.3f} s "
                    f"({sbytes} B), 9 shard sha256s match the numpy cpu "
                    f"coder, spread {sby}; SIGKILL of {svictim} (shards "
                    f"{sby[svictim]}); every needle GET byte-exact "
@@ -2143,7 +2465,9 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         log(phase, f"SIGTERM: {sorted(rcs)} exited 0, no dirty marker. "
                    f"writes {total / write_s / 1e9:.3f} GB/s, vacuum "
                    f"{vac_s:.3f} s, encode "
-                   f"{dat_bytes / (enc_s - empty_s) / 1e9:.3f} GB/s, "
+                   f"{dat_bytes / (enc_s - empty_s) / 1e9:.3f} GB/s "
+                   f"streamed, {CLUSTER_MULTI} volumes streamed at once "
+                   f"{multi['gbps']:.3f} GB/s, "
                    f"GETs on a lost shard {_ms(deg)}, "
                    f"rebuild {survivor_bytes / (reb_s - empty_s) / 1e9:.3f} "
                    f"GB/s, scrub {scrub_s:.3f} s, decode {dec_s:.3f} s; "

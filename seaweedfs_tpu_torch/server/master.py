@@ -407,6 +407,11 @@ class MasterServer:
             for vid, nodes in list(vl.locations.items()):
                 if volume_id and vid != volume_id:
                     continue
+                # a copy of the replica list (topology_vacuum.go's
+                # locationList.Copy()): a heartbeat folded mid-pass
+                # re-orders the live list, and iterating it then skipped
+                # a replica's compact or commit
+                nodes = list(nodes)
                 try:
                     ratios = []
                     for dn in nodes:

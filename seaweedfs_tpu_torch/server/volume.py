@@ -11,9 +11,9 @@ EC dispatch scheduler).
 
 Every RPC of the service is registered. Those whose dependencies are not
 part of the port yet answer UNIMPLEMENTED (HTTP: 501) with a message that
-names the ROADMAP.md item that will port them: tiering, the streamed
-encode, remote fetch, Query, /ui, image resizing and the native C++ data
-plane (`native=True` raises here). A server without a reachable master
+names the ROADMAP.md item that will port them: tiering, remote fetch,
+Query, /ui, image resizing and the native C++ data plane (`native=True`
+raises here). A server without a reachable master
 keeps serving: the heartbeat retries and EC shard lookups cache an empty
 answer, so the local shards encode, serve degraded reads, rebuild and
 scrub on their own.
@@ -40,6 +40,7 @@ from ..pb import master_pb2, rpc, scrub_pb2, volume_server_pb2 as vs
 from ..scrub import Scrubber
 from ..scrub import digest as scrub_digest
 from ..storage import types
+from ..storage.crc import implementation as crc_implementation
 from ..storage.ec_files import (
     find_dat_file_size,
     rebuild_ec_files,
@@ -77,7 +78,6 @@ BUFFER_SIZE_LIMIT = 2 * 1024 * 1024  # streaming chunk (volume_grpc_copy.go:25)
 
 # ROADMAP.md items that will port what this module answers UNIMPLEMENTED
 ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
-ROADMAP_STREAM = "ROADMAP.md A4 (streamed encode: storage/ec_stream.py)"
 ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
 ROADMAP_QUERY = "ROADMAP.md A2d (query)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
@@ -1326,14 +1326,232 @@ class VolumeGrpc:
         return vs.VolumeEcShardsGenerateResponse()
 
     def VolumeEcShardsGenerateStreamed(self, request, context):
-        _unimplemented(context, "VolumeEcShardsGenerateStreamed",
-                       ROADMAP_STREAM)
+        """Generate shards AND push each remote destination's shards to
+        it while the encode is still running: network transfer, the GF
+        product on the card and destination shard I/O all in flight at
+        once (storage/ec_stream.py). Local shard files are still written
+        (the source keeps its own shards; they are also the resume
+        source after a destination flap)."""
+        from ..pb import ec_stream_pb2 as es
+        from ..storage.ec_stream import EcStreamDestination, EcStreamSinkSet
+        from ..utils.stats import EC_STREAM_OVERLAP_RATIO
+
+        v, geo, coder, pace = self._generate_prologue(request, context)
+        base = v.file_name()
+        shard_size = geo.shard_size(v.data_size())
+        dests = [
+            EcStreamDestination(
+                t.address, request.volume_id, request.collection,
+                list(t.shard_ids), base, geo, shard_size,
+                source=self.srv.address)
+            for t in request.targets if t.shard_ids
+        ]
+        t0 = time.perf_counter()
+        sinks = EcStreamSinkSet(dests)
+        try:
+            enc_stats = write_ec_files(base, coder, geo, sinks=sinks,
+                                       pace=pace)
+        except BaseException as e:
+            sinks.abort()
+            from ..qos import QosUnavailable
+
+            if isinstance(e, QosUnavailable):
+                context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(e))
+            raise
+        resp = es.VolumeEcShardsGenerateStreamedResponse()
+
+        def finish_one(d):
+            # per-destination verdict; finish() may run a full
+            # missing-range resume with retries, so destinations must
+            # not serialize behind each other's catch-up
+            try:
+                d.finish()
+                return d, None
+            # lint: allow-broad-except(a destination's failure becomes its
+            # verdict; the shell falls back to VolumeEcShardsCopy for it)
+            except BaseException as e:  # noqa: BLE001
+                return d, (d.error or f"{type(e).__name__}: {e}")
+
+        results = []
+        if dests:
+            # lint: allow-executor — per-conversion admin path (one
+            # pool per ec.encode stream, not per request); finish() can
+            # block minutes on resume retries, which would starve the
+            # shared fan-out budget
+            with ThreadPoolExecutor(max_workers=len(dests)) as ex:
+                results = list(ex.map(finish_one, dests))
+        for d, err in results:
+            r = resp.targets.add(address=d.address)
+            if err is None:
+                r.ok = True
+            else:
+                r.ok = False
+                r.error = err
+                glog.warning(f"ec stream vol {v.id} -> {d.address} "
+                             f"failed after retries: {err}; caller "
+                             f"falls back to VolumeEcShardsCopy")
+            r.bytes_streamed = d.bytes_streamed
+            r.resumes = d.resumes
+            r.resumed_bytes = d.resumed_bytes
+            resp.bytes_streamed += d.bytes_streamed
+            resp.resumes += d.resumes
+        wall = time.perf_counter() - t0
+        self._generate_epilogue(v, geo, base, t0, enc_stats)
+        resp.encode_seconds = enc_stats.wall_s
+        resp.wall_seconds = wall
+        resp.overlap_ratio = enc_stats.wall_s / wall if wall > 0 else 0.0
+        if dests:
+            EC_STREAM_OVERLAP_RATIO.set(resp.overlap_ratio)
+        return resp
+
+    # ---- streaming shard receive (ec_stream.proto) -------------------------
 
     def VolumeEcShardsStream(self, request_iterator, context):
-        _unimplemented(context, "VolumeEcShardsStream", ROADMAP_STREAM)
+        """Destination side of the pipelined archival encode: append
+        shard slabs as they arrive (in offset order per shard), verify
+        each slab's crc32c in transit, chain per-shard digests while
+        writing, and at commit check them against the source's
+        crc32c_combine-folded expectation — then persist the `.dig`
+        manifest without re-reading a byte. `resume=True` continues
+        after this server's on-disk prefix (the prefix digest is
+        re-chained from disk, the only re-read on the resume path)."""
+        from ..scrub.digest import ShardCrc, write_ec_manifest
+        from ..storage.crc import crc32c, crc32c_combine
+        from ..utils.stats import EC_STREAM_BYTES, EC_STREAM_SLABS
+
+        it = iter(request_iterator)
+        first = next(it, None)
+        if first is None or not first.HasField("header"):
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          "first stream message must be the header")
+        h = first.header
+        loc = self.store.locations[0]
+        base = loc.base_name(h.collection, h.volume_id)
+        geo = self.srv.ec_geometry
+        files: dict[int, object] = {}
+        digests: dict[int, int] = {}
+        sizes: dict[int, int] = {}
+        phase = "resume" if h.resume else "live"
+        received = 0
+        commit = None
+        try:
+            for sid in h.shard_ids:
+                path = geo.shard_file_name(base, sid)
+                if h.resume and os.path.exists(path):
+                    f = open(path, "r+b")
+                    crc = 0
+                    n = 0
+                    while True:  # re-chain the digest over the prefix
+                        chunk = f.read(1 << 20)
+                        if not chunk:
+                            break
+                        crc = crc32c(chunk, crc)
+                        n += len(chunk)
+                    digests[sid], sizes[sid] = crc, n
+                else:
+                    f = open(path, "wb")
+                    digests[sid], sizes[sid] = 0, 0
+                files[sid] = f
+            for msg in it:
+                if msg.HasField("slab"):
+                    s = msg.slab
+                    # chaos hook: a targeted destination drops
+                    # mid-stream; the source resumes from this server's
+                    # reported on-disk prefix. Matchable per shard AND
+                    # per slab range (comma-terminated ctx convention).
+                    try:
+                        failpoint.fail(
+                            "ec.stream.slab",
+                            ctx=f"{self.srv.address}, "
+                                f"shard={s.shard_id}, off={s.offset},")
+                    except failpoint.FailpointError as e:
+                        context.abort(grpc.StatusCode.UNAVAILABLE, str(e))
+                    f = files.get(s.shard_id)
+                    if f is None:
+                        context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                                      f"shard {s.shard_id} not in header")
+                    slab_crc = crc32c(s.data)
+                    if slab_crc != s.crc:
+                        context.abort(grpc.StatusCode.DATA_LOSS,
+                                      f"slab crc mismatch in transit "
+                                      f"(shard {s.shard_id} @ {s.offset})")
+                    if s.offset != sizes[s.shard_id]:
+                        context.abort(
+                            grpc.StatusCode.FAILED_PRECONDITION,
+                            f"non-contiguous slab for shard {s.shard_id}:"
+                            f" offset {s.offset}, have {sizes[s.shard_id]}")
+                    if f.tell() != s.offset:  # interleaved shards only
+                        f.seek(s.offset)
+                    f.write(s.data)
+                    sizes[s.shard_id] += len(s.data)
+                    # chain via the O(32^2) combine fold instead of a
+                    # second full crc pass over the slab bytes
+                    digests[s.shard_id] = crc32c_combine(
+                        digests[s.shard_id], slab_crc, len(s.data))
+                    received += len(s.data)
+                    EC_STREAM_BYTES.inc(len(s.data), role="dest",
+                                        phase=phase)
+                    EC_STREAM_SLABS.inc(role="dest", phase=phase)
+                elif msg.HasField("commit"):
+                    commit = msg.commit
+                    break
+            if commit is None:
+                context.abort(grpc.StatusCode.ABORTED,
+                              "stream ended without commit")
+            # flushed, not fsynced: the VolumeEcShardsCopy path the
+            # stream replaces never fsyncs either (the source holds every
+            # shard until the shell's delete step, so a crashed
+            # destination is simply re-streamed)
+            for f in files.values():
+                f.flush()
+            for d in commit.digests:
+                if d.shard_id not in files:
+                    continue
+                if (sizes[d.shard_id], digests[d.shard_id]) != (d.size,
+                                                                d.crc):
+                    context.abort(
+                        grpc.StatusCode.DATA_LOSS,
+                        f"shard {d.shard_id} digest mismatch at commit: "
+                        f"wrote size={sizes[d.shard_id]} "
+                        f"crc={digests[d.shard_id]:#x}, source expects "
+                        f"size={d.size} crc={d.crc:#x}")
+            # the digest manifest falls out of the digests chained
+            # while writing — no second read (cached_ec_digest serves
+            # VolumeDigest from it once the shards mount)
+            write_ec_manifest(base, {
+                sid: ShardCrc(sid, digests[sid], sizes[sid])
+                for sid in files})
+            from ..pb import ec_stream_pb2 as es
+
+            resp = es.VolumeEcShardsStreamResponse(bytes_received=received)
+            for sid in sorted(files):
+                resp.shards.add(shard_id=sid, crc=digests[sid],
+                                size=sizes[sid])
+            return resp
+        finally:
+            for f in files.values():
+                try:
+                    f.close()
+                except OSError:
+                    pass
 
     def VolumeEcShardsStreamStatus(self, request, context):
-        _unimplemented(context, "VolumeEcShardsStreamStatus", ROADMAP_STREAM)
+        """Resume probe: contiguous bytes of each requested shard durably
+        on this server's disk (slabs arrive in offset order, so file
+        size IS the complete prefix length)."""
+        from ..pb import ec_stream_pb2 as es
+
+        loc = self.store.locations[0]
+        base = loc.base_name(request.collection, request.volume_id)
+        geo = self.srv.ec_geometry
+        resp = es.VolumeEcShardsStreamStatusResponse()
+        for sid in request.shard_ids:
+            try:
+                size = os.path.getsize(geo.shard_file_name(base, sid))
+            except OSError:
+                size = 0
+            resp.shards.add(shard_id=sid, size=size)
+        return resp
 
     def VolumeEcShardsRead(self, request, context):
         """Cross-server syndrome-verify gather source: stream
@@ -1918,7 +2136,10 @@ def _make_http_handler(srv: VolumeServer):
                     # streaming replica->EC conversion:
                     # live/resume byte flow, in-flight depth, overlap
                     # ratio, and the copy-fallback comparands
-                    "EcStream": ec_stream_stats(),
+                    # (with the CRC-32C kernel every slab is checked
+                    # by: a pure-python one would dominate the encode)
+                    "EcStream": {**ec_stream_stats(),
+                                 "crc32c": crc_implementation()},
                     # integrity plane: sweep cursors, findings
                     # lifecycle, repair outcomes, pacing
                     "Scrub": {**srv.scrubber.status(),

@@ -10,26 +10,27 @@ reference shell does.
 Addition over SeaweedFS: `-geometry` and `-dataShards/-parityShards`
 flags (SeaweedFS hard-codes 10+4).
 
-`ec.encode` generates the shards on the source and then copies them to
-their destinations. The pipelined encode that streams each destination's
-shards while the product runs (`-stream 1`) is not part of the port yet:
-asking for it fails, naming ROADMAP.md A4.
+`ec.encode` streams by default, as the reference does: placement is
+planned first, and one VolumeEcShardsGenerateStreamed on the source
+pushes each destination's shards to it while the product runs
+(storage/ec_stream.py). `-stream 0`, or `SWFS_EC_STREAM=0` in the
+environment, selects the generate-then-copy path.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 from ...pb import (
     ec_geometry_pb2 as eg,
+    ec_stream_pb2 as es,
     master_pb2,
     volume_server_pb2 as vs,
 )
 from ..registry import command
-
-ROADMAP_STREAM = "ROADMAP.md A4 (streamed encode: storage/ec_stream.py)"
 
 
 def _collect_ec_nodes(env, topo=None):
@@ -81,16 +82,15 @@ def ec_encode(env, args, out):
                         "VolumeEcShardsGenerate pipelines on one server "
                         "coalesce into stacked device dispatches "
                         "(ops/dispatch.py)")
-    p.add_argument("-stream", type=int, default=0, choices=(0, 1),
-                   help="0 = generate on the source, then copy (the "
-                        "port's only path); 1 = the pipelined "
-                        "encode+distribute, not part of the port yet")
+    p.add_argument("-stream", type=int, default=None, choices=(0, 1),
+                   help="pipelined encode+distribute: placement "
+                        "is computed BEFORE encoding and each "
+                        "destination's shards stream to it while the GF "
+                        "product runs (default on; env escape hatch "
+                        "SWFS_EC_STREAM=0). 0 = classic "
+                        "generate-then-copy")
     opts = p.parse_args(args)
     env.confirm_is_locked()
-    if opts.stream:
-        raise NotImplementedError(
-            "ec.encode -stream 1 is not part of the PyTorch port yet: "
-            + ROADMAP_STREAM)
     _validate_geometry_opt(opts, out)
 
     from ...utils import trace
@@ -102,7 +102,7 @@ def ec_encode(env, args, out):
         return
     if opts.parallelEncode <= 1 or len(vids) == 1:
         for vid in vids:
-            # root a trace per conversion: the generate and copy RPCs and
+            # root a trace per conversion: the generate/stream RPCs and
             # every destination's sink work become one dumpable tree
             with trace.span("shell.ec.encode", component="shell",
                             vid=vid) as tsp:
@@ -206,11 +206,21 @@ def _geometry_total_shards(opts) -> int:
     return (opts.dataShards or 10) + (opts.parityShards or 4)
 
 
+def _stream_enabled(opts) -> bool:
+    """-stream flag wins; else SWFS_EC_STREAM env (default on)."""
+    if getattr(opts, "stream", None) is not None:
+        return bool(opts.stream)
+    return os.environ.get("SWFS_EC_STREAM", "1").lower() not in (
+        "0", "false", "off")
+
+
 def _plan_placement(env, total_shards: int, shared) -> dict[str, list[int]]:
     """Spread shards across servers (balancedEcDistribution), rack-aware:
     losing one rack must cost as few shards of this volume as possible
     (SeaweedFS README's "rack-aware placement";
-    pickRackToBalanceShardsInto in command_ec_balance.go)."""
+    pickRackToBalanceShardsInto in command_ec_balance.go). In streaming
+    mode this runs BEFORE the encode so shard bytes go straight to their
+    destinations."""
     topo = env.volume_list().topology_info  # one snapshot for both views
     nodes = _collect_ec_nodes(env, topo)
     if not nodes:
@@ -243,6 +253,7 @@ def _do_ec_encode(env, vid: int, opts, out, shared=None) -> None:
     total_shards = _geometry_total_shards(opts)
     if shared is None:
         shared = _SharedPlacement()  # serial path: ledger is a no-op
+    stream = _stream_enabled(opts)
 
     # 1. freeze writes on every replica (markVolumeReplicasWritable false)
     frozen: list[str] = []
@@ -255,8 +266,12 @@ def _do_ec_encode(env, vid: int, opts, out, shared=None) -> None:
     # volume is deleted rolls the replicas back to writable — the
     # conversion never happened, so the volume must not stay frozen.
     try:
-        alloc = _do_copy_encode(env, vid, collection, source,
-                                total_shards, opts, shared, out)
+        if stream:
+            alloc = _do_stream_encode(env, vid, collection, source,
+                                      total_shards, opts, shared, out)
+        else:
+            alloc = _do_copy_encode(env, vid, collection, source,
+                                    total_shards, opts, shared, out)
     except BaseException:
         for addr in frozen:
             try:
@@ -343,6 +358,72 @@ def _do_copy_encode(env, vid, collection, source, total_shards, opts,
         # one target's copy/mount failed AFTER others may have mounted:
         # un-advertise everything before the caller restores the plain
         # replicas to writable, or stale EC locations would shadow them
+        _cleanup_targets(env, vid, collection,
+                         [t for t in alloc if t != source])
+        raise
+    return alloc
+
+
+def _do_stream_encode(env, vid, collection, source, total_shards, opts,
+                      shared, out) -> dict[str, list[int]]:
+    """Pipelined path: placement FIRST, then one
+    VolumeEcShardsGenerateStreamed that encodes and pushes each remote
+    destination's shards to it while the GF matmul is still running. A
+    destination the stream could not finish (even after slab-range
+    resume) falls back to the classic copy — the source holds all shard
+    files either way, so the conversion still completes."""
+    alloc = _plan_placement(env, total_shards, shared)
+    req = es.VolumeEcShardsGenerateStreamedRequest(
+        volume_id=vid, collection=collection,
+        data_shards=opts.dataShards, parity_shards=opts.parityShards,
+        geometry=getattr(opts, "geometry", ""))
+    for target, sids in alloc.items():
+        if target != source and sids:
+            req.targets.add(address=target, shard_ids=sids)
+    try:
+        resp = env.volume_stub(source).VolumeEcShardsGenerateStreamed(
+            req, timeout=24 * 3600)
+    except BaseException:
+        # destinations may hold partially streamed .ecXX files with no
+        # .ecx — clean them best-effort so a failed encode leaks
+        # neither disk nor a stale shard set (the outer handler still
+        # restores replica writability)
+        _cleanup_targets(env, vid, collection,
+                         [t.address for t in req.targets])
+        raise
+    failed = {r.address for r in resp.targets if not r.ok}
+    resumed = sum(r.resumes for r in resp.targets)
+    print(f"volume {vid}: streamed {total_shards} shards from {source} "
+          f"({resp.bytes_streamed} bytes overlapped, overlap ratio "
+          f"{resp.overlap_ratio:.2f}"
+          + (f", {resumed} resume(s)" if resumed else "")
+          + (f", fallback copy for {sorted(failed)}" if failed else "")
+          + ")", file=out)
+
+    def finish_target(target_and_sids):
+        target, sids = target_and_sids
+        if target != source:
+            # streamed destinations only need the index files; failed
+            # ones pull their shard bytes too (generate-then-copy)
+            env.volume_stub(target).VolumeEcShardsCopy(
+                vs.VolumeEcShardsCopyRequest(
+                    volume_id=vid, collection=collection,
+                    shard_ids=sids if target in failed else [],
+                    copy_ecx_file=True, copy_ecj_file=True,
+                    copy_vif_file=True, source_data_node=source),
+                timeout=3600)
+        env.volume_stub(target).VolumeEcShardsMount(
+            vs.VolumeEcShardsMountRequest(
+                volume_id=vid, collection=collection, shard_ids=sids),
+            timeout=60)
+
+    try:
+        with ThreadPoolExecutor(max_workers=max(1, opts.parallelCopy)) as ex:
+            list(ex.map(finish_target, alloc.items()))
+    except BaseException:
+        # mirror of _do_copy_encode: a failed mount/index-copy must not
+        # leave other destinations' already-mounted shards advertised
+        # while the plain replicas come back writable
         _cleanup_targets(env, vid, collection,
                          [t for t in alloc if t != source])
         raise

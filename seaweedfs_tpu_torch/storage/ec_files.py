@@ -1,5 +1,5 @@
-"""EC shard-file pipelines: encode a .dat into .ecNN shards and rebuild
-missing shards.
+"""EC shard-file pipelines: encode a .dat into .ecNN shards, rebuild
+missing shards, and decode shards back into a .dat/.idx.
 
 Counterpart of seaweedfs_tpu/storage/ec_files.py (SeaweedFS's
 ec_encoder.go WriteEcFiles / RebuildEcFiles): the same reader /
@@ -15,8 +15,8 @@ stacked launches. Shard bytes are independent of batch size and of
 stacking (parity is a per-byte-column GF matmul), so output files are
 bit-identical to the reference's 256KB batching.
 
-Not carried over yet: NUMA pinning of the pipeline threads, shard sinks
-and pacing (``sinks=``, ``pace=``), and the decode-back path (write_dat_file and friends).
+Not carried over: the reference's `ec.shard.write.corrupt` chaos hook
+in the shard writers and its SEAWEEDFS_TPU_EC_WRITERS override.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..ops import dispatch
+from ..utils import numa
 from . import idx as idx_mod
 from . import needle_map, types
 from .ec_locate import Geometry
@@ -92,8 +93,9 @@ class _ShardWriters:
     disk."""
 
     def __init__(self, files: dict[int, object], stats: EncodeStats,
-                 depth: int):
+                 depth: int, numa_node: int | None = None):
         self._files = files
+        self._numa_node = numa_node
         self._stats = stats
         self._stats_lock = threading.Lock()
         n = _writer_thread_count(len(files))
@@ -115,6 +117,11 @@ class _ShardWriters:
             t.start()
 
     def _run(self, q: queue.Queue) -> None:
+        # NUMA-affine writers (SWFS_EC_DISPATCH_PIN): every writer pins
+        # to the SAME node as its pipeline's reader (the shared numa_node
+        # draw), since the rows a writer drains were packed by that
+        # reader; a no-op when the gate is closed
+        numa.pin_thread(self._numa_node)
         while True:
             item = q.get()
             if item is None:
@@ -228,6 +235,7 @@ def generate_ec_files(
     geo: Geometry = Geometry(),
     batch_size: int = DEFAULT_BATCH_SIZE,
     pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
+    sinks=None,
     pace=None,
 ) -> EncodeStats:
     """<base>.dat -> <base>.ec00..ecNN.
@@ -249,10 +257,21 @@ def generate_ec_files(
     concurrently through one coder each run their own pipeline; their
     slabs meet in the scheduler's encode lane and share launches.
 
+    `sinks` (storage/ec_stream.py EcStreamSinkSet) is the shard-sink
+    hook: an object whose put(shard_id, shard_offset, row, nbytes)
+    receives every slab row the moment it is on the host (data rows
+    before the parity is waited for, parity rows right after), so the
+    transfer to the shards' destination servers overlaps the encode. A
+    row is always a C-contiguous uint8 numpy row, never a device tensor.
+    Sinks copy the bytes synchronously, on this thread (the pipeline
+    recycles its buffers); local shard files are written regardless
+    (they are the resume source, and keep the bytes identical to the
+    generate-then-copy path by construction).
+
     `pace` (qos/priority.py BackgroundGovernor.pacer) is called with each
-    slab's data-byte count before the slab's rows are routed to writers;
-    it may block (waiting on cluster tokens) or raise (QosUnavailable
-    mid-job) — the pipeline aborts cleanly either way.
+    slab's data-byte count before the slab's rows are routed to writers
+    and sinks; it may block (waiting on cluster tokens) or raise
+    (QosUnavailable mid-job) — the pipeline aborts cleanly either way.
     """
     k, m = geo.data_shards, geo.parity_shards
     dat_path = base_file_name + ".dat"
@@ -275,8 +294,13 @@ def generate_ec_files(
     # like a direct call's tensor, and shard bytes stay identical
     sched = dispatch.maybe_scheduler(coder)
     encode = coder.encode_parity if sched is None else sched.encode_parity
+    # one node per PIPELINE: reader and writers share it, so the recycled
+    # read buffers stay node-local end to end; concurrent pipelines
+    # round-robin across nodes through their own draws
+    pipe_node = numa.next_node()
 
     def reader() -> None:
+        numa.pin_thread(pipe_node)  # reads + encode submits node-local
         try:
             with open(dat_path, "rb") as f:
                 processed = 0
@@ -309,10 +333,12 @@ def generate_ec_files(
         except BaseException as e:  # surface in the coordinator/caller
             work_q.put(e)
 
-    writers = _ShardWriters(dict(enumerate(outs)), stats, depth)
+    writers = _ShardWriters(dict(enumerate(outs)), stats, depth,
+                            numa_node=pipe_node)
     t = threading.Thread(target=reader, name="ec-encode-reader", daemon=True)
     t.start()
     ok = False
+    shard_off = 0  # every shard advances by the same nbytes per slab
     try:
         while True:
             item = work_q.get()
@@ -326,6 +352,13 @@ def generate_ec_files(
                 # higher-priority demand; a raise aborts the pipeline
                 # through the normal failure path below
                 pace(k * nbytes)
+            if sinks is not None:
+                # data rows stream BEFORE the writers get the buffer:
+                # sinks copy synchronously here, and once writers.put
+                # hands rows to the writer threads the countdown can
+                # recycle the buffer under a concurrent reader refill
+                for i in range(k):
+                    sinks.put(i, shard_off, data[i], nbytes)
             release = _Countdown(k, lambda b=buf: free_q.put(b))
             for i in range(k):
                 writers.put(i, data[i], nbytes, release)
@@ -336,6 +369,9 @@ def generate_ec_files(
                 # parity rows are views of one fresh array; numpy refcounts
                 # keep it alive until the last writer drops its view
                 writers.put(k + j, parity[j], nbytes)
+                if sinks is not None:
+                    sinks.put(k + j, shard_off, parity[j], nbytes)
+            shard_off += nbytes
             stats.batches += 1
             stats.bytes += k * nbytes
         writers.close()
@@ -360,9 +396,11 @@ def generate_ec_files(
 
 
 def write_ec_files(base_file_name: str, coder,
-                   geo: Geometry = Geometry(), pace=None) -> EncodeStats:
+                   geo: Geometry = Geometry(), sinks=None,
+                   pace=None) -> EncodeStats:
     """WriteEcFiles equivalent."""
-    return generate_ec_files(base_file_name, coder, geo, pace=pace)
+    return generate_ec_files(base_file_name, coder, geo, sinks=sinks,
+                             pace=pace)
 
 
 def write_ecx_stride_marker(base_file_name: str) -> None:
@@ -467,8 +505,10 @@ def rebuild_ec_files(
     sched = dispatch.maybe_scheduler(coder)
     recon = coder.reconstruct_stacked if sched is None else \
         sched.reconstruct_stacked
+    pipe_node = numa.next_node()  # shared by reader + writers
 
     def reader() -> None:
+        numa.pin_thread(pipe_node)  # survivor reads stay node-local
         try:
             offset = 0
             while not stop.is_set():
@@ -497,7 +537,8 @@ def rebuild_ec_files(
         except BaseException as e:
             work_q.put(e)
 
-    writers = _ShardWriters(outs, EncodeStats(), DEFAULT_PIPELINE_DEPTH)
+    writers = _ShardWriters(outs, EncodeStats(), DEFAULT_PIPELINE_DEPTH,
+                            numa_node=pipe_node)
     t = threading.Thread(target=reader, name="ec-rebuild-reader", daemon=True)
     t.start()
     ok = False

@@ -379,24 +379,34 @@ class Store:
                 + loc.max_volume_count
             )
             for vid, v in list(loc.volumes.items()):
+                # under the volume's lock: a vacuum commit swaps .dat and
+                # .idx with both closed, and a volume skipped from this
+                # full-state report is unregistered from the master's
+                # layout until the next pulse
                 try:
-                    hb.volumes.append(master_pb2.VolumeInformationMessage(
-                        id=vid, size=v.data_size(), collection=v.collection,
-                        file_count=v.file_count(),
-                        delete_count=v.deleted_count(),
-                        deleted_byte_count=v.deleted_size(),
-                        # a flush-frozen volume must leave the master's
-                        # writable set like a read-only one
-                        read_only=v.read_only or v._gc_frozen,
-                        replica_placement=v.super_block
-                        .replica_placement.to_byte(),
-                        version=v.version, ttl=v.ttl.to_uint32(),
-                        compact_revision=v.super_block.compaction_revision,
-                        modified_at_second=int(v.last_modified_ts_seconds),
-                    ))
+                    with v._lock:
+                        info = master_pb2.VolumeInformationMessage(
+                            id=vid, size=v.data_size(),
+                            collection=v.collection,
+                            file_count=v.file_count(),
+                            delete_count=v.deleted_count(),
+                            deleted_byte_count=v.deleted_size(),
+                            # a flush-frozen volume must leave the
+                            # master's writable set like a read-only one
+                            read_only=v.read_only or v._gc_frozen,
+                            replica_placement=v.super_block
+                            .replica_placement.to_byte(),
+                            version=v.version, ttl=v.ttl.to_uint32(),
+                            compact_revision=v.super_block
+                            .compaction_revision,
+                            modified_at_second=int(
+                                v.last_modified_ts_seconds),
+                        )
+                        file_key = v.nm.max_file_key
                 except (OSError, ValueError, AttributeError):
                     continue  # mid-unmount; the next pulse reconciles
-                max_file_key = max(max_file_key, v.nm.max_file_key)
+                hb.volumes.append(info)
+                max_file_key = max(max_file_key, file_key)
             for vid, ev in list(loc.ec_volumes.items()):
                 bits = 0
                 for sid in list(ev.shard_files):

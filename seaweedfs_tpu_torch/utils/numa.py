@@ -1,11 +1,12 @@
 """NUMA/host-thread pinning for the EC dispatch hot loop.
 
-The part of seaweedfs_tpu/utils/numa.py that the dispatch flusher uses.
-The flusher moves tens of MB per batch between arena buffers and the
-device driver. On a multi-socket host the OS is free to migrate it
-across NUMA nodes mid-batch, turning every one of those passes into
-cross-node traffic. Pinning it to one node's CPU set keeps a flush's
-arena and its host-to-device copy on local memory.
+Counterpart of seaweedfs_tpu/utils/numa.py. The dispatch flusher and
+the encode pipeline's reader and shard writers move tens of MB per batch
+between page cache, arena buffers and the device driver. On a
+multi-socket host the OS is free to migrate those threads across NUMA
+nodes mid-batch, turning every one of those passes into cross-node
+traffic. Pinning each thread to one node's CPU set keeps a flush's
+arena, its page-cache reads and its host-to-device copy on local memory.
 
 Everything here is OPTIONAL and fails soft:
 
@@ -17,11 +18,13 @@ Everything here is OPTIONAL and fails soft:
   * ``os.sched_setaffinity`` failures (EPERM in a locked-down container,
     non-Linux hosts without the call) degrade to a counted no-op.
 
-Threads register through :func:`pin_thread` and round-robin across
-nodes. Not carried over yet: ``next_node``, the node one encode
-pipeline's reader and shard writers share in the reference; the port's
-pipelines pin nothing until a measurement on the card's host asks for
-it.
+Threads register through :func:`pin_thread`. COOPERATING threads share
+a node: an encode pipeline's reader packs buffers its shard writers
+drain, so the pipeline draws ONE node via :func:`next_node` and passes it
+to every member as the ``node_hint``; only unrelated threads
+(independent pipelines, the shared dispatch flusher, a stream's sender)
+round-robin, which spreads load across nodes without splitting a
+producer/consumer pair.
 """
 
 from __future__ import annotations
@@ -91,15 +94,30 @@ def node_cpus(sys_root: str = "/sys/devices/system/node") -> list[list[int]]:
     return nodes
 
 
-def pin_thread() -> tuple[int, ...] | None:
-    """Pin the CALLING thread to one NUMA node's CPUs, the next node in
-    round-robin order. Returns the CPU set applied, or None when pinning
-    was a no-op (gate closed, or EPERM)."""
+def next_node() -> int | None:
+    """Draw a node index for a NEW thread group (an encode or rebuild
+    pipeline): every member then pins with this value as its
+    ``node_hint`` so producer and consumers share memory locality.
+    None when the gate is closed (callers pass it straight through)."""
+    if not enabled():
+        return None
+    return next(_rr) % len(node_cpus())
+
+
+def pin_thread(node_hint: int | None = None) -> tuple[int, ...] | None:
+    """Pin the CALLING thread to one NUMA node's CPUs.
+
+    ``node_hint`` selects the node (modulo the node count): pass one
+    :func:`next_node` draw to every thread of a cooperating group;
+    without a hint threads round-robin across nodes. Returns the CPU
+    set applied, or None when pinning was a no-op (gate closed, or
+    EPERM)."""
     global _pinned, _noops
     if not enabled():
         return None
     nodes = node_cpus()
-    cpus = tuple(nodes[next(_rr) % len(nodes)])
+    idx = next(_rr) if node_hint is None else node_hint
+    cpus = tuple(nodes[idx % len(nodes)])
     setter = getattr(os, "sched_setaffinity", None)
     if setter is None:
         with _lock:

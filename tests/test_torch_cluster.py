@@ -12,14 +12,18 @@ reference's global `random`, the port master's `placement_seed`).
 
 The script: `volume.grow -replication 001`, seeded writes through
 `operation.submit` (each lands on both replicas), deletes through the
-primary (they replicate too), `volume.vacuum`, `lock`, `ec.encode` (shards
-spread rack-aware over the four servers), the server holding the most
+primary (they replicate too), `volume.vacuum`, `lock`, `ec.encode` (the
+default, streamed path: placement first, then the source streams each
+destination's shards to it while it encodes; shards spread rack-aware
+over the four servers), the server holding the most
 shards stopped, degraded GETs through `MasterClient` lookups (survivors
 gathered from the other servers), a fresh server and `ec.rebuild`, a byte
 flipped in one shard that `volume.scrub -full` finds and repairs, and
-`ec.decode`. The fids, every server's files (sha256), the vacuumed
+`ec.decode`. The fids, every server's files (sha256, with the `.dig`
+manifests the streamed encode's destinations wrote), the vacuumed
 volumes, GET bodies and every command's output must be equal in all four
-runs (tolerance 0: GF arithmetic is exact). Then the CLI: `python -m
+runs (tolerance 0: GF arithmetic is exact), except the overlap ratio the
+streamed encode measures, which is masked. Then the CLI: `python -m
 seaweedfs_tpu_torch master`, `volume -coder cpu`, `server -coder cpu`,
 `upload`, `shell` and `download` as processes with no JAX in them, and the
 options that are not ported refusing at start."""
@@ -28,6 +32,7 @@ import hashlib
 import io
 import os
 import random
+import re
 import secrets
 import signal
 import socket
@@ -245,6 +250,14 @@ class _Cluster:
                 and name[-2:].isdigit()}
         return out
 
+    def digs(self) -> dict:
+        """{server: {file name: sha256}} of the `.dig` manifests."""
+        return {addr: {name: hashlib.sha256(open(os.path.join(d, name),
+                                                 "rb").read()).hexdigest()
+                       for name in sorted(os.listdir(d))
+                       if name.endswith(".dig")}
+                for addr, (_, d) in sorted(self.servers.items())}
+
     def dir_of(self, address: str) -> str:
         return self.servers[address][1]
 
@@ -319,10 +332,12 @@ def _script(cluster_pkg: str, shell_pkg: str, root: str) -> dict:
                 for url in replicas}
 
             out["lock"] = sh("lock")
-            out["encode"] = sh(f"ec.encode -volumeId {vid} -stream 0")
+            out["encode"] = _measured_ratio_masked(
+                sh(f"ec.encode -volumeId {vid}"))
             c.settle()
             out["list_encoded"] = sh("volume.list")
             out["encoded"] = c.files()
+            out["encoded_digs"] = c.digs()
 
             holders = {addr: [n for n in names if n[-2:].isdigit()]
                        for addr, names in out["encoded"].items()}
@@ -375,6 +390,13 @@ def _script(cluster_pkg: str, shell_pkg: str, root: str) -> dict:
     out["clean"] = all(not os.path.exists(recovery.marker_path(d))
                        for d in out.get("dirs", {}).values())
     return out
+
+
+def _measured_ratio_masked(text: str) -> str:
+    """The streamed encode's line with its one timing figure masked: the
+    overlap ratio is encode wall over the RPC's wall."""
+    return re.sub(r"overlap ratio \d+\.\d+", "overlap ratio <measured>",
+                  text)
 
 
 _DONE: dict = {}
@@ -438,6 +460,13 @@ def test_the_reference_run_takes_the_operators_path(ref):
             assert (status, body) == ((404, body) if i in DELETED
                                       else (200, BLOBS[i]))
     assert "shards spread" in ref["encode"]
+    # the default path: streamed, nothing fell back to the copy
+    assert "streamed 14 shards" in ref["encode"]
+    assert "overlap ratio <measured>" in ref["encode"]
+    assert "fallback" not in ref["encode"]
+    # every destination wrote a .dig manifest of the shards it received
+    digs = {a for a, names in ref["encoded_digs"].items() if names}
+    assert len(digs) == 3 and digs < set(alive), ref["encoded_digs"]
     assert ref["victim"] not in ref["rebuilt"]
     for i, (status, body) in enumerate(ref["degraded"]):
         if i not in DELETED:
@@ -478,6 +507,7 @@ def test_encoded_shards_match_per_server(ref, other):
     _, run = other
     assert run["encode"] == ref["encode"]
     assert run["encoded"] == ref["encoded"]
+    assert run["encoded_digs"] == ref["encoded_digs"]
     assert run["list_encoded"] == ref["list_encoded"]
 
 

@@ -428,9 +428,7 @@ def test_each_server_opens_the_others_directory(code, direction,
 
 DEFERRED_RPCS = ("VolumeTierMoveDatToRemote",
                  "VolumeTierMoveDatFromRemote",
-                 "VolumeEcShardsGenerateStreamed", "VolumeEcShardsStream",
-                 "VolumeEcShardsStreamStatus", "FetchAndWriteNeedle",
-                 "Query")
+                 "FetchAndWriteNeedle", "Query")
 
 
 @pytest.fixture(scope="module")
@@ -474,6 +472,39 @@ def test_deferred_rpc_answers_unimplemented(lone_server, name):
             fn(req, timeout=30)
     assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
     assert "ROADMAP.md" in e.value.details()
+
+
+@pytest.mark.parametrize("name,code", [
+    ("VolumeEcShardsGenerateStreamed", grpc.StatusCode.NOT_FOUND),
+    ("VolumeEcShardsStream", grpc.StatusCode.ABORTED),
+    ("VolumeEcShardsStreamStatus", None),
+])
+def test_stream_rpcs_are_served(lone_server, name, code):
+    """The streamed encode's RPCs answer (tests/test_torch_ec_stream.py
+    drives them end to end): a generate of a volume the server lacks is
+    NOT_FOUND, a stream that ends after its header without a commit is
+    ABORTED, and the resume probe reports 0 bytes of shards it holds
+    none of."""
+    from seaweedfs_tpu_torch.pb import ec_stream_pb2 as es
+
+    _, stub, _ = lone_server
+    if name == "VolumeEcShardsStreamStatus":
+        resp = stub.VolumeEcShardsStreamStatus(
+            es.VolumeEcShardsStreamStatusRequest(volume_id=VID,
+                                                 shard_ids=[0, 13]),
+            timeout=30)
+        assert [(p.shard_id, p.size) for p in resp.shards] == [(0, 0),
+                                                               (13, 0)]
+        return
+    with pytest.raises(grpc.RpcError) as e:
+        if name == "VolumeEcShardsStream":
+            stub.VolumeEcShardsStream(iter([es.VolumeEcShardsStreamRequest(
+                header=es.EcStreamHeader(volume_id=VID))]), timeout=30)
+        else:
+            stub.VolumeEcShardsGenerateStreamed(
+                es.VolumeEcShardsGenerateStreamedRequest(volume_id=VID + 1),
+                timeout=30)
+    assert e.value.code() == code, e.value.details()
 
 
 def test_every_rpc_of_the_service_has_a_handler():

@@ -13,7 +13,9 @@ lrc_10_2_2. The .dat, .idx, .ec00-.ec13, .ecx and .vif must be
 byte-identical, and the reads, the rebuilt shards and the restarted
 Store's reads equal (tolerance 0). Clocks are pinned the same way in both
 packages' needle modules and both Stores carry the same server address, so
-needle timestamps and replica-epoch tags are equal too."""
+needle timestamps and replica-epoch tags are equal too. One test holds the
+port alone: a heartbeat taken during a vacuum commit still reports the
+volume, where the reference's skips it."""
 
 import hashlib
 import os
@@ -408,3 +410,51 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# -- the heartbeat during a vacuum commit ------------------------------------------
+
+
+def test_a_heartbeat_during_a_vacuum_commit_still_reports_the_volume(
+        tmp_path, monkeypatch):
+    """commit_compact swaps .dat and .idx with both closed. A full-state
+    heartbeat taken in that window waits for the commit and reports the
+    volume at its new revision; one that skipped it would unregister the
+    replica from the master's layout until the next pulse."""
+    import threading
+
+    from seaweedfs_tpu_torch.utils import failpoint
+
+    st = store.Store([str(tmp_path)], coder=object(), **ADDR)
+    try:
+        v = st.add_volume(3, replication="001")
+        for i in range(1, 41):
+            st.write_needle(3, needle.Needle.create(i, 9, bytes([i]) * 300,
+                                                    last_modified=1))
+        for i in range(1, 41, 4):
+            st.delete_needle(3, i, None)
+        inside, release = threading.Event(), threading.Event()
+
+        def pause_between_the_renames(name, *, ctx=""):
+            if name == "volume.vacuum.commit":
+                inside.set()
+                release.wait(30)
+
+        monkeypatch.setattr(failpoint, "fail", pause_between_the_renames)
+        v.compact()
+        commit = threading.Thread(target=v.commit_compact)
+        commit.start()
+        assert inside.wait(30)
+        got = []
+        beat = threading.Thread(
+            target=lambda: got.append(st.collect_heartbeat()))
+        beat.start()
+        beat.join(0.5)  # inside the window: .dat and .idx are closed
+        release.set()
+        commit.join(30)
+        beat.join(30)
+        (hb,) = got
+        assert [(m.id, m.compact_revision, m.file_count)
+                for m in hb.volumes] == [(3, 1, 30)]
+    finally:
+        st.close()

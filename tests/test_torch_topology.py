@@ -8,7 +8,9 @@ reports, deltas, node loss), volume placement (`find_empty_slots` and
 port's explicit generator), `ec.encode`'s rack-aware `_plan_placement`,
 the cluster membership registry, the master's HTTP and gRPC answers over
 one topology, and the shell commands that are not ported refusing with
-their ROADMAP.md item."""
+their ROADMAP.md item. One test holds the port alone: the master's
+vacuum pass commits every replica when a heartbeat folds mid-pass,
+where the reference skips one."""
 
 import io
 import random
@@ -493,6 +495,54 @@ def test_deferred_master_rpcs_answer_unimplemented(name):
     assert "ROADMAP.md" in e.value.details()
 
 
+def test_vacuum_commits_every_replica_when_a_heartbeat_folds_mid_pass(
+        monkeypatch):
+    """A full-state heartbeat folded while the vacuum pass runs moves its
+    node to the end of the volume's live location list. The pass works
+    on a copy of the list, so each replica is compacted and committed
+    exactly once (the reference iterates the live list and, in that
+    case, commits the first replica twice and never the second)."""
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs
+
+    ms = master.MasterServer(ip="127.0.0.1", port=1,
+                             allocate_fn=lambda *a: None)
+
+    def beat(port, vids):
+        hb = master_pb2.Heartbeat(ip="127.0.0.1", port=port, rack="r1",
+                                  data_center="dc1")
+        for vid in vids:
+            hb.volumes.add(id=vid, replica_placement=1, version=3, size=8)
+        hb.has_no_volumes = not vids
+        return hb
+
+    dns = {port: ms.handle_heartbeat(beat(port, [5])) for port in (8001,
+                                                                   8002)}
+    calls = []
+
+    class Stub:
+        def __init__(self, addr):
+            self.port = int(addr.rsplit(":", 1)[1]) - rpc.GRPC_PORT_DELTA
+
+        def VacuumVolumeCheck(self, req, timeout):
+            return vs.VacuumVolumeCheckResponse(garbage_ratio=0.5)
+
+        def VacuumVolumeCompact(self, req, timeout):
+            calls.append(("compact", self.port))
+            return iter(())
+
+        def VacuumVolumeCommit(self, req, timeout):
+            calls.append(("commit", self.port))
+            if self.port == 8001:  # its pulse lands mid-commit
+                ms.handle_heartbeat(beat(8001, []), dns[8001])
+                ms.handle_heartbeat(beat(8001, [5]), dns[8001])
+            return vs.VacuumVolumeCommitResponse()
+
+    monkeypatch.setattr(master.rpc, "volume_stub", Stub)
+    assert ms.vacuum_once(0.3) == 1
+    assert calls == [("compact", 8001), ("compact", 8002),
+                     ("commit", 8001), ("commit", 8002)]
+
+
 def test_every_rpc_of_the_master_service_has_a_handler():
     names = [m["name"] for m in rpc.MASTER_SERVICE[1]]
     assert names == [m["name"] for m in ref_rpc.MASTER_SERVICE[1]]
@@ -523,7 +573,6 @@ def test_the_ui_answers_501_naming_its_item():
     "volume.fsck",
     "cluster.raft.add -id=a:1",
     "cluster.raft.remove -id=a:1",
-    "ec.encode -volumeId 1 -stream 1",
 ])
 def test_shell_commands_not_ported_name_their_item(line):
     env = port_env.CommandEnv("127.0.0.1:1")
