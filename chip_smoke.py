@@ -74,7 +74,7 @@ and prints no result without them. Phases, each printing its own line:
   8. server          the volume server as a process: `python3 -m
                      seaweedfs_tpu_torch volume` with its default coder
                      (cuda, K1) and an unreachable master; over gRPC
-                     AllocateVolume, 1 GiB of seeded 1-64 KiB needles
+                     AllocateVolume, 512 MiB of seeded 1-64 KiB needles
                      POSTed over HTTP by 8 clients, VolumeMarkReadonly,
                      VolumeEcShardsGenerate, VolumeUnmount and
                      VolumeEcShardsMount; shards {0, 5, 13} unmounted,
@@ -96,7 +96,7 @@ and prints no result without them. Phases, each printing its own line:
                      K1) in racks r0, r0, r1, r1, all started at once.
                      `shell` volume.grow of one volume of collection c1
                      with replication 001; 8 clients write seeded 1-64 KiB
-                     needles through operation.submit until it holds 1000
+                     needles through operation.submit until it holds 512
                      MiB of needle bytes (both replicas hold every one); a
                      seeded 10% deleted through the primary, then
                      `volume.vacuum -garbageThreshold 0.05` (both replicas
@@ -133,16 +133,43 @@ and prints no result without them. Phases, each printing its own line:
                      dirty marker. Each step's wall and rate, K1's
                      launches by R summed from every server's /metrics,
                      and the host's NUMA layout
+ 10. filer           the filer as an operator runs it, as processes: a
+                     `master` (-volumeSizeLimitMB 256), four `volume`
+                     servers with their default coder (cuda, K1) in racks
+                     r0, r0, r1, r1 and a `filer` (-store sqlite, the
+                     default -maxMB 4, its own -dir, its chunk cache off
+                     so that every GET reaches the volume servers).
+                     8 clients PUT about 1 GiB of seeded files through its
+                     HTTP API: 8,000 of 1-64 KiB (1,000 in one directory,
+                     the rest in 64 nested ones) and 24 of 8-64 MiB (2-16
+                     chunks each); every file GET byte-exact with its md5
+                     ETag, range GETs across a chunk boundary, the
+                     1,000-entry directory listed in pages (limit,
+                     lastFileName), one rename (gRPC AtomicRenameEntry),
+                     one recursive DELETE. `lock; ec.encode -collection fc
+                     -fullPercent 0.001; unlock` (streamed): every volume
+                     holding chunks, 14 shard sha256s each against the
+                     numpy cpu coder, K1 at R = 4 on every source. SIGKILL
+                     of a server holding 4 shards; every surviving file
+                     GET byte-exact by 8 readers, those with a chunk on a
+                     lost shard timed apart, K1 at R = 4 on the
+                     survivors; `shell -filer` fs.ls, fs.du, fs.cat and
+                     fs.verify against the written set. The filer SIGTERMed
+                     (exit 0) and started again on its -dir: a seeded
+                     sample listed and read back. SIGTERM to every
+                     process: exit 0, no dirty marker. Write GB/s and
+                     files/s, live and degraded GET ms, the encode's
+                     shell wall, the restart seconds, K1 by R
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
 pipeline phases (a short loop for one kernel; K1's are pipeline, store,
-server and cluster); the run says what it skipped.
+server, cluster and filer); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
 read just after; a kernel that path never launched fails the run. The
 server phase's counts start at 0 with its process and are read from its
 /metrics before and after each step. K1's count in the JSON line is the sum
-over its four phases. K1's launches are also split by R (1 or 2: a
+over its five phases. K1's launches are also split by R (1 or 2: a
 degraded read through EcVolume, 4: a degraded GET through the server, 3:
 rebuild, 4: encode). The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
@@ -229,6 +256,8 @@ TIMED_SHAPES = (
     ("gf_xor", "rebuild [3,10]", "decode", MIB),
     ("gf_xor", "degraded read [1,10]", "degraded", DEGRADED_WIDTH),
     ("gf_xor", "degraded GET [4,10]", "degraded GET", GET_WIDTH),
+    ("gf_xor", "degraded read [2,10]", "degraded store", DEGRADED_WIDTH),
+    ("gf_xor", "RS(6,3) encode [3,6]", "encode 6+3", MIB),
     ("gf_bits", "encode [4,10]", "encode", MIB),
     ("gf_bits", "rebuild [3,10]", "decode", MIB),
     ("gf_bits", "stacked flush [4,10]", "encode", STACKED_WIDTH),
@@ -244,7 +273,7 @@ _MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                 ("H200", 4.8e12), ("H100", 3.35e12))
 
 # the pipeline phases that drive each kernel
-PHASES = {"gf_xor": "pipeline, store, server and cluster",
+PHASES = {"gf_xor": "pipeline, store, server, cluster and filer",
           "gf_bits": "pipeline-bits",
           "gf_sel": "pipeline-sched"}
 # each kernel: its module, operand form and the TPU kernel it replaces
@@ -355,14 +384,18 @@ def _sm_clock() -> str:
 def _matrices() -> dict[str, np.ndarray]:
     """K1's and K2's matrices: the RS(10,4) encode, the fused decode of
     the rebuild ([3, 10], shards REBUILD_LOST lost), of a degraded read
-    ([1, 10], shard DEGRADED_SHARD lost) and of the server's degraded GET
-    ([4, 10], the rows GET_UNREAD)."""
-    def fused(lost):
-        present = tuple(i for i in range(14) if i not in lost)
+    ([1, 10], shard DEGRADED_SHARD lost), of the server's degraded GET
+    ([4, 10], the rows GET_UNREAD), of the Store's degraded reads with
+    REBUILD_LOST gone (an interval spanning both lost data shards: [2,
+    10]), and the RS(6,3) encode of the cluster's config #5 ([3, 6])."""
+    def fused(lost, gone=None):
+        present = tuple(i for i in range(14) if i not in (gone or lost))
         return gfmat.fused_reconstruct_matrix(10, 4, present, lost)[0]
     return {"encode": gf256.parity_matrix(10, 4), "decode": fused(REBUILD_LOST),
             "degraded": fused((DEGRADED_SHARD,)),
-            "degraded GET": fused(GET_UNREAD)}
+            "degraded GET": fused(GET_UNREAD),
+            "degraded store": fused(REBUILD_LOST[:2], REBUILD_LOST),
+            "encode 6+3": gf256.parity_matrix(6, 3)}
 
 
 def _check_equal(name: str, what: str, op, data) -> int:
@@ -1198,7 +1231,10 @@ def store_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
 
 SERVER_VID = 9
-SERVER_VOLUME_MB = 1024  # the store phase's size and needle mix, over HTTP
+# the store phase's needle mix over HTTP, at half its size: at full size
+# the script came within 31 s of its 1200 s limit on a slow host, and the
+# filer phase's time came out of this phase's and the cluster's depth
+SERVER_VOLUME_MB = 512
 SERVER_CLIENTS = 8  # writer threads, then reader threads
 SERVER_START_S = 120  # process start until /status answers
 SERVER_EC_TIMEOUT_S = 600  # the first EC RPC may build K1 (60-104 s of nvcc)
@@ -1606,7 +1642,7 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 # -- cluster --------------------------------------------------------------------
 
 
-CLUSTER_VOLUME_MB = 1000  # needle bytes: the .dat stays under the limit
+CLUSTER_VOLUME_MB = 512  # needle bytes: the .dat stays under the limit
 CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
 CLUSTER_SMALL_MB = 128  # config #5's collection
 CLUSTER_MULTI = 4  # config #4: volumes streamed at once (-parallelEncode)
@@ -1691,11 +1727,24 @@ class _Fleet:
             raise AssertionError(f"{self.phase}: CRC-32C runs in {slow}")
         return got
 
+    def spawn_filer(self, name: str, collection: str, d: str,
+                    env: dict | None = None) -> int:
+        """A filer on its store directory `d` (kept across restarts under
+        the same name prefix); -> its port."""
+        port = _free_port_pair()
+        while port == self.master_port or port in self.ports():
+            port = _free_port_pair()
+        self._spawn(name, ["filer", "-ip", "127.0.0.1", "-port", str(port),
+                           "-master", self.master, "-dir", d,
+                           "-collection", collection], port, d, env)
+        return port
+
     def volumes(self) -> dict[str, tuple]:
         """{address: (name, dir)} of the running volume servers."""
         return {f"127.0.0.1:{p}": (n, d)
                 for n, (proc, _, p, d) in self.procs.items()
-                if n != "master" and proc.poll() is None}
+                if n != "master" and not n.startswith("filer")
+                and proc.poll() is None}
 
     def wait_up(self, names, timeout: float = SERVER_START_S) -> float:
         """Wait until each process answers /status and the master lists
@@ -1751,7 +1800,8 @@ class _Fleet:
         included (read just before they were killed)."""
         out = dict(self.k1_gone)
         for name, (proc, _, port, _) in self.procs.items():
-            if name == "master" or proc.poll() is not None:
+            if name == "master" or name.startswith("filer") or \
+                    proc.poll() is not None:
                 continue
             for (k, r), n in _kernel_launches(port).items():
                 if k == "gf_xor" and r:
@@ -2120,7 +2170,7 @@ def _multi_stream(phase: str, fleet: _Fleet, rng, payload: bytes,
 def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The operator's path through a cluster of processes on the card
     (see the module docstring); -> K1's launches. Which encode runs
-    where: the 1000 MiB volume of c1 and the four volumes of c4 take the
+    where: the 512 MiB volume of c1 and the four volumes of c4 take the
     default, streamed path (VolumeEcShardsGenerateStreamed on each source,
     K1 there while the shards stream); the RS(6,3) volume of c5 the copy
     path (`-stream 0`: VolumeEcShardsGenerate, then VolumeEcShardsCopy)."""
@@ -2484,6 +2534,437 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         shutil.rmtree(root)
 
 
+# -- filer --------------------------------------------------------------------
+
+FILER_LIMIT_MB = 256  # the master's -volumeSizeLimitMB
+FILER_COLLECTION = "fc"
+FILER_SMALL = 8000  # files of 1-64 KiB: FILER_WIDE in one directory,
+FILER_WIDE = 1000  # the rest in FILER_DIRS nested directories
+FILER_DIRS = 64
+FILER_LARGE = 24  # files of 8-64 MiB: 2-16 chunks at the default -maxMB 4
+FILER_LARGE_MIB = (8, 64)
+FILER_CHUNK = 4 * MIB
+FILER_PAGE = 100  # the paged listing's limit
+FILER_SAMPLE = 200  # files listed and read back after the restart
+FILER_PAYLOAD_MB = 128
+
+
+def _filer_files(rng) -> list[tuple]:
+    """[(path, start, size)] of the seeded file set: slices of the
+    payload; one text file, for fs.cat."""
+    files = [("/fs/readme.txt", -1, 0)]
+    for i in range(FILER_SMALL):
+        size = int(rng.integers(1, 64 * 1024 + 1))
+        start = int(rng.integers(0, FILER_PAYLOAD_MB * MIB - size))
+        d = ("/fs/wide" if i < FILER_WIDE else
+             f"/fs/d{(i % FILER_DIRS) // 8}/e{i % 8}")
+        files.append((f"{d}/s{i:05d}", start, size))
+    for j in range(FILER_LARGE):
+        lo, hi = FILER_LARGE_MIB
+        size = int(rng.integers(lo * MIB, hi * MIB + 1))
+        start = int(rng.integers(0, FILER_PAYLOAD_MB * MIB - size))
+        files.append((f"/fs/big/L{j:02d}", start, size))
+    return files
+
+
+class _FilerFiles:
+    """The written set: path -> bytes, held as slices of one payload."""
+
+    def __init__(self, rng):
+        self.payload = rng.bytes(FILER_PAYLOAD_MB * MIB)
+        self.text = "".join(chr(int(c)) for c in
+                            rng.integers(32, 127, 3000)).encode()
+        self.items = {p: (start, size) for p, start, size in
+                      _filer_files(rng)}
+
+    def data(self, path: str):
+        start, size = self.items[path]
+        if start < 0:
+            return self.text
+        return memoryview(self.payload)[start:start + size]
+
+
+def _filer_put_all(phase: str, port: int, files: _FilerFiles, paths
+                   ) -> tuple[dict, float]:
+    """PUT every path through the filer's HTTP API by 8 clients;
+    -> ({path: md5 hex}, seconds)."""
+    def put(conn, path):
+        data = files.data(path)
+        conn.request("PUT", path, body=data,
+                     headers={"Content-Length": str(len(data))})
+        r = conn.getresponse()
+        body = r.read()
+        if r.status != 201 or json.loads(body)["size"] != len(data):
+            raise AssertionError(f"{phase}: PUT {path}: {r.status} {body!r}")
+        return hashlib.md5(data).hexdigest()
+
+    t0 = time.perf_counter()
+    md5 = _clients(port, put, paths)
+    return dict(zip(paths, md5)), time.perf_counter() - t0
+
+
+def _filer_get_all(phase: str, port: int, files: _FilerFiles, paths,
+                   md5: dict) -> list[float]:
+    """GET every path through the filer by 8 readers, byte-exact, with
+    the ETag the reference gives it (the quoted md5 of the body);
+    -> seconds of each GET."""
+    def get(conn, path):
+        t0 = time.perf_counter()
+        conn.request("GET", path)
+        r = conn.getresponse()
+        body = r.read()
+        dt = time.perf_counter() - t0
+        if r.status != 200 or body != files.data(path):
+            raise AssertionError(f"{phase}: GET {path}: {r.status}, "
+                                 f"{len(body)} B, not the bytes written")
+        if r.getheader("ETag") != f'"{md5[path]}"':
+            raise AssertionError(f"{phase}: GET {path}: ETag "
+                                 f"{r.getheader('ETag')}, not the md5")
+        return dt
+
+    return _clients(port, get, paths)
+
+
+def _filer_entries(address: str, directory: str) -> list:
+    from seaweedfs_tpu_torch.pb import filer_pb2
+
+    stub = rpc.filer_stub(rpc.grpc_address(address))
+    return [r.entry for r in stub.ListEntries(filer_pb2.ListEntriesRequest(
+        directory=directory, limit=1 << 20), timeout=120)]
+
+
+def _filer_volumes(fleet: _Fleet) -> dict[int, tuple[str, str]]:
+    """{vid: (server address, dir)} of the collection's non-empty
+    volumes, from the volume servers' directories."""
+    out = {}
+    for addr, (_, d) in fleet.volumes().items():
+        for name in os.listdir(d):
+            m = re.fullmatch(rf"{FILER_COLLECTION}_(\d+)\.dat", name)
+            if m and os.path.getsize(os.path.join(d, name)) > 8:
+                out[int(m.group(1))] = (addr, d)
+    return out
+
+
+def _wait_listed(fleet: _Fleet, vols: dict) -> None:
+    """Wait until the master's heartbeats show each of `vols` with its
+    bytes, so that ec.encode -fullPercent selects every one."""
+    from seaweedfs_tpu_torch.pb import master_pb2
+
+    stub = rpc.master_stub(rpc.grpc_address(fleet.master))
+    want = {vid: os.path.getsize(os.path.join(
+        d, f"{FILER_COLLECTION}_{vid}.dat")) for vid, (_, d) in vols.items()}
+    t0 = time.perf_counter()
+    while True:
+        topo = stub.VolumeList(master_pb2.VolumeListRequest(),
+                               timeout=60).topology_info
+        sizes = {v.id: v.size for dc in topo.data_center_infos
+                 for rack in dc.rack_infos for dn in rack.data_node_infos
+                 for disk in dn.disk_infos.values()
+                 for v in disk.volume_infos
+                 if v.collection == FILER_COLLECTION}
+        if all(sizes.get(vid) == n for vid, n in want.items()):
+            return
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"filer: the master lists {sizes}, the "
+                                 f"disks hold {want}")
+        time.sleep(0.3)
+
+
+def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
+    """The filer as an operator runs it (see the module docstring):
+    files written through its HTTP API, their volumes erasure-coded by
+    the shell's streamed `ec.encode` (K1 at R = 4 on each source), every
+    file read back through it with a 4-shard server lost (K1 at R = 4 on
+    the survivors), `shell -filer`, a restart on its sqlite store;
+    -> K1's launches."""
+    from seaweedfs_tpu_torch.pb import filer_pb2
+    from seaweedfs_tpu_torch.storage.file_id import parse_file_id
+
+    phase = "filer"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    fleet = _Fleet(phase, root)
+    fdir = os.path.join(root, "filer-store")
+    # the filer's chunk cache off: every GET below reaches the volume
+    # servers, so that the degraded ones are K1's reconstructions
+    fenv = {"SWFS_FILER_CACHE_MB": "0"}
+    try:
+        fleet._spawn("master", ["master", "-ip", "127.0.0.1", "-port",
+                                str(fleet.master_port), "-volumeSizeLimitMB",
+                                str(FILER_LIMIT_MB)], fleet.master_port, "")
+        for i, rack in enumerate(CLUSTER_RACKS):
+            fleet.spawn_volume(f"v{i}", rack)
+        fport = fleet.spawn_filer("filer", FILER_COLLECTION, fdir, fenv)
+        faddr = f"127.0.0.1:{fport}"
+        up_s = fleet.wait_up(["master", "filer"] +
+                             [f"v{i}" for i in range(len(CLUSTER_RACKS))])
+        rpc.reset_channels()  # no channel dialled before the listeners
+        log(phase, f"one master (-volumeSizeLimitMB {FILER_LIMIT_MB}), "
+                   f"{len(CLUSTER_RACKS)} volume servers (default coder, "
+                   f"racks {'/'.join(CLUSTER_RACKS)}) and a filer (-store "
+                   f"sqlite, -maxMB 4, -collection {FILER_COLLECTION}, "
+                   f"chunk cache off) started at once: up in {up_s:.2f} s")
+
+        # 2. about 1 GiB of files through the filer's HTTP API, 8 clients
+        rng = np.random.default_rng(seed)
+        files = _FilerFiles(rng)
+        paths = sorted(files.items, key=lambda p: (files.items[p][1]
+                                                   > 64 * 1024, p))
+        md5, write_s = _filer_put_all(phase, fport, files, paths)
+        total = sum(len(files.data(p)) for p in paths)
+        large = [p for p in paths if p.startswith("/fs/big/")]
+        nchunks = {len(e.chunks) for e in _filer_entries(faddr, "/fs/big")}
+        if min(nchunks) < 2 or max(nchunks) > 16:
+            raise AssertionError(f"{phase}: large files in {nchunks} chunks")
+        live_ms = _filer_get_all(phase, fport, files, paths, md5)
+        conn = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            for p in large[:4]:
+                a, b = FILER_CHUNK - 1000, FILER_CHUNK + 999
+                conn.request("GET", p, headers={"Range": f"bytes={a}-{b}"})
+                r = conn.getresponse()
+                body = r.read()
+                if r.status != 206 or body != files.data(p)[a:b + 1] or \
+                        r.getheader("Content-Range") != \
+                        f"bytes {a}-{b}/{len(files.data(p))}":
+                    raise AssertionError(f"{phase}: range GET of {p}: "
+                                         f"{r.status}")
+            names, last, pages = [], "", 0
+            while True:
+                conn.request("GET", f"/fs/wide/?limit={FILER_PAGE}"
+                                    f"&lastFileName={last}")
+                r = conn.getresponse()
+                page = json.loads(r.read())
+                pages += 1
+                names += [e["FullPath"] for e in page["Entries"]]
+                if not page["ShouldDisplayLoadMore"]:
+                    break
+                last = page["Entries"][-1]["FullPath"].rsplit("/", 1)[1]
+            wide = sorted(p for p in paths if p.startswith("/fs/wide/"))
+            if names != wide:
+                raise AssertionError(f"{phase}: the paged listing of "
+                                     f"/fs/wide gave {len(names)} names")
+            # one rename through the filer's gRPC API, one recursive delete
+            moved = large[0].replace("/L", "/moved-L")
+            rpc.filer_stub(rpc.grpc_address(faddr)).AtomicRenameEntry(
+                filer_pb2.AtomicRenameEntryRequest(
+                    old_directory="/fs/big", old_name=large[0][8:],
+                    new_directory="/fs/big", new_name=moved[8:]),
+                timeout=120)
+            files.items[moved] = files.items.pop(large[0])
+            md5[moved] = md5.pop(large[0])
+            gone = [p for p in paths if p.startswith("/fs/d7/")]
+            conn.request("DELETE", "/fs/d7?recursive=true")
+            r = conn.getresponse()
+            r.read()
+            if r.status != 204:
+                raise AssertionError(f"{phase}: recursive DELETE: {r.status}")
+            for p in (large[0], gone[0]):
+                conn.request("GET", p)
+                r = conn.getresponse()
+                r.read()
+                if r.status != 404:
+                    raise AssertionError(f"{phase}: GET {p}: {r.status}")
+        finally:
+            conn.close()
+        for p in gone:
+            del files.items[p]
+        paths = sorted(files.items)
+        _filer_get_all(phase, fport, files, [moved], md5)
+        log(phase, f"{len(paths) + len(gone)} files ({total} B: "
+                   f"{FILER_SMALL + 1} of 1-64 KiB, {FILER_WIDE} of them in "
+                   f"one directory, the rest in {FILER_DIRS} nested ones; "
+                   f"{FILER_LARGE} of 8-64 MiB in {min(nchunks)}-"
+                   f"{max(nchunks)} chunks) PUT through the filer by "
+                   f"{SERVER_CLIENTS} clients in {write_s:.3f} s = "
+                   f"{total / write_s / 1e9:.3f} GB/s, "
+                   f"{(len(paths) + len(gone)) / write_s:.0f} files/s; "
+                   f"every file GET byte-exact with its md5 ETag "
+                   f"({_ms(live_ms)}); range GETs across a chunk boundary; "
+                   f"/fs/wide listed in {pages} pages of {FILER_PAGE}; "
+                   f"{large[0]} renamed (gRPC AtomicRenameEntry); /fs/d7 "
+                   f"deleted recursively ({len(gone)} files)")
+
+        # 3. the shell's streamed ec.encode of every volume holding chunks
+        vols = _filer_volumes(fleet)
+        _wait_listed(fleet, vols)
+        keep = {}
+        for vid, (addr, d) in vols.items():
+            keep[vid] = os.path.join(root, f"keep-{vid}")
+            for ext in (".dat", ".idx"):
+                os.link(os.path.join(d, f"{FILER_COLLECTION}_{vid}{ext}"),
+                        keep[vid] + ext)
+        sources = sorted({a for a, _ in vols.values()})
+        src_k0 = {a: _kernel_launches(fleet.port_of(a)) for a in sources}
+        k0 = fleet.k1()
+        out, enc_s = fleet.shell(
+            "lock", f"ec.encode -collection {FILER_COLLECTION} "
+                    f"-fullPercent 0.001", "unlock")
+        said = _streamed(phase, out)
+        if sorted(said) != sorted(vols):
+            raise AssertionError(f"{phase}: ec.encode streamed {sorted(said)}"
+                                 f", the volumes holding chunks are "
+                                 f"{sorted(vols)}")
+        for vid in vols:
+            _wait_ec(fleet, vid, 14, plain=False)
+        k1 = fleet.k1()
+        src_k1 = {a: {int(r): n - src_k0[a].get((k, r), 0)
+                      for (k, r), n in _kernel_launches(
+                          fleet.port_of(a)).items()
+                      if k == "gf_xor" and r and n - src_k0[a].get((k, r), 0)}
+                  for a in sources}
+        geo = Geometry()
+        t0 = time.perf_counter()
+        oracles = dict(zip(vols, _all_at_once(
+            lambda vid: cpu_oracle_hashes(keep[vid], geo, workdir), vols)))
+        oracle_s = time.perf_counter() - t0
+        where = {vid: _check_ec(phase, fleet, f"{FILER_COLLECTION}_{vid}",
+                                geo, oracles[vid]) for vid in vols}
+        dat_bytes = sum(os.path.getsize(k + ".dat") for k in keep.values())
+        enc_k1 = _k1_step(k0, k1)
+        log(phase, f"shell lock; ec.encode -collection {FILER_COLLECTION} "
+                   f"-fullPercent 0.001; unlock (streamed): {enc_s:.3f} s of "
+                   f"shell wall for {len(vols)} volumes ({dat_bytes} B of "
+                   f".dat, {dat_bytes / enc_s / 1e9:.3f} GB/s) from "
+                   f"{len(sources)} sources; 14 shard sha256s of each "
+                   f"match the numpy cpu coder ({oracle_s:.1f} s); K1 "
+                   f"launches by R on each source {src_k1}, on every "
+                   f"server {enc_k1}")
+        if not all(src_k1[a].get(4) for a in sources):
+            raise AssertionError(f"{phase}: ec.encode did not launch K1 at "
+                                 f"R = 4 on every source: {src_k1}")
+
+        # 4. a server holding 4 shards lost; every file GET by 8 readers
+        held: dict[str, dict[int, list[int]]] = {}
+        for vid, w in where.items():
+            for sid, a in w.items():
+                held.setdefault(a, {}).setdefault(vid, []).append(sid)
+        victim = max(sorted(held), key=lambda a: (
+            max(len(s) for s in held[a].values()) == 4,
+            sum(len(s) for s in held[a].values())))
+        lost = held[victim]
+        if max(len(s) for s in lost.values()) != 4:
+            raise AssertionError(f"{phase}: no server holds 4 shards: "
+                                 f"{held}")
+        chunks_of = {}
+        for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+            for e in _filer_entries(faddr, d):
+                chunks_of[f"{d}/{e.name}"] = [parse_file_id(c.file_id)
+                                              for c in e.chunks]
+        where_of = {}
+        for vid, k in keep.items():
+            ids, offs, sizes = idx.read_index_file(k + ".idx")
+            where_of[vid] = {int(n): (types.stored_to_actual_offset(int(o)),
+                                      types.actual_size(int(z)))
+                             for n, o, z in zip(ids, offs, sizes)}
+        touching = set()
+        for vid in vols:
+            extents = [(p, *where_of[vid][f.key]) for p, fs in
+                       chunks_of.items() for f in fs if f.volume_id == vid]
+            hit, _ = split_by_lost(geo, os.path.getsize(keep[vid] + ".dat"),
+                                   extents, lost.get(vid, []))
+            touching |= set(hit)
+        fleet.kill(victim)
+        k2 = fleet.k1()
+        got_ms = _filer_get_all(phase, fport, files, paths, md5)
+        k3 = fleet.k1()
+        deg = [t for p, t in zip(paths, got_ms) if p in touching]
+        rest = [t for p, t in zip(paths, got_ms) if p not in touching]
+        get_k1 = _k1_step(k2, k3)
+        log(phase, f"SIGKILL of {victim} (shards by volume {lost}); every "
+                   f"surviving file GET byte-exact through the filer by "
+                   f"{SERVER_CLIENTS} readers: {len(deg)} with a chunk on a "
+                   f"lost shard ({_ms(deg)}), {len(rest)} others "
+                   f"({_ms(rest)}); K1 launches by R {get_k1}")
+        if not get_k1.get(4):
+            raise AssertionError(f"{phase}: the degraded GETs launched K1 "
+                                 f"by R {get_k1}, none at R = 4")
+
+        # the shell with -filer: fs.ls, fs.du, fs.cat, fs.verify
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-master",
+             fleet.master, "-filer", faddr], cwd=HERE, env=fleet.env,
+            input="fs.ls /fs/wide\nfs.du /fs\nfs.cat /fs/readme.txt\n"
+                  "fs.verify /fs/big\n", capture_output=True, text=True,
+            timeout=CLUSTER_CALL_S)
+        shell_s = time.perf_counter() - t0
+        text = r.stdout
+        if r.returncode != 0 or "error:" in text:
+            raise AssertionError(f"{phase}: shell -filer said:\n{text}\n"
+                                 f"{r.stderr[-4000:]}")
+        listed = re.findall(r"(?m)^(?:> )*(s\d{5})$", text)
+        want_du = (f"{sum(len(files.data(p)) for p in paths):>14d} bytes  "
+                   f"{len(paths):>8d} files  /fs")
+        if sorted(listed) != [p.rsplit("/", 1)[1] for p in wide] or \
+                want_du not in text or files.text.decode() not in text or \
+                "0 missing/corrupt" not in text:
+            raise AssertionError(f"{phase}: shell -filer fs.* output does "
+                                 f"not match the written set:\n"
+                                 f"{text[-3000:]}")
+        verified = re.search(r"verified \d+ chunks, \d+ missing/corrupt",
+                             text).group(0)
+        log(phase, f"shell -filer ({shell_s:.2f} s): fs.ls /fs/wide lists "
+                   f"its {len(wide)} files, fs.du /fs \"{want_du.strip()}\","
+                   f" fs.cat /fs/readme.txt gives its bytes, fs.verify "
+                   f"/fs/big \"{verified}\"")
+
+        # 5. the filer restarted on its sqlite store
+        proc = fleet.procs["filer"][0]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"{phase}: the filer exited {rc} on SIGTERM")
+        t0 = time.perf_counter()
+        fport = fleet.spawn_filer("filer2", FILER_COLLECTION, fdir, fenv)
+        faddr = f"127.0.0.1:{fport}"
+        fleet.wait_up(["filer2"])
+        restart_s = time.perf_counter() - t0
+        rpc.reset_channels()
+        sample = sorted(np.random.default_rng(seed + 1).choice(
+            paths, size=FILER_SAMPLE, replace=False).tolist())
+        for d in sorted({p.rsplit("/", 1)[0] for p in sample}):
+            got = sorted(f"{d}/{e.name}" for e in _filer_entries(faddr, d))
+            if got != sorted(p for p in paths if p.rsplit("/", 1)[0] == d):
+                raise AssertionError(f"{phase}: after the restart {d} lists "
+                                     f"{len(got)} entries")
+        again = _filer_get_all(phase, fport, files, sample, md5)
+        log(phase, f"filer SIGTERM (exit 0) and a new one on the same -dir: "
+                   f"up in {restart_s:.2f} s; the listings of a seeded "
+                   f"sample's {len({p.rsplit('/', 1)[0] for p in sample})} "
+                   f"directories and its {len(sample)} files byte-exact "
+                   f"({_ms(again)})")
+
+        # 6. SIGTERM to every process
+        by_r = fleet.k1()
+        dirs = {n: d for n, (_, _, _, d) in fleet.procs.items()
+                if n.startswith("v") and fleet.procs[n][0].poll() is None}
+        rcs = fleet.terminate()
+        if set(rcs.values()) != {0}:
+            raise AssertionError(f"{phase}: exit codes on SIGTERM {rcs}")
+        dirty = [n for n, d in dirs.items()
+                 if os.path.exists(recovery.marker_path(d))]
+        if dirty:
+            raise AssertionError(f"{phase}: dirty marker left by {dirty}")
+        log(phase, f"SIGTERM: {sorted(rcs)} exited 0, no dirty marker. "
+                   f"writes {total / write_s / 1e9:.3f} GB/s "
+                   f"({(len(paths) + len(gone)) / write_s:.0f} files/s), "
+                   f"live GETs {_ms(live_ms)}, degraded GETs {_ms(deg)}, "
+                   f"encode {enc_s:.3f} s of shell wall, filer restart "
+                   f"{restart_s:.2f} s; gf_xor by R over every server "
+                   f"{dict(sorted(by_r.items()))}; phase wall "
+                   f"{time.perf_counter() - t_phase:.3f} s; nvidia-smi: "
+                   f"{smi}")
+        return dict(launches=sum(by_r.values()))
+    except BaseException:
+        log(phase, f"log tails:\n{fleet.log_tails()}")
+        raise
+    finally:
+        fleet.close()
+        rpc.reset_channels()
+        shutil.rmtree(root)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2598,6 +3079,8 @@ def main(argv=None) -> int:
         got = server_phase(seed=5, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
         got = cluster_phase(seed=6, workdir=args.workdir, card=card, smi=smi)
+        paths["gf_xor"]["launches"] += got["launches"]
+        got = filer_phase(seed=7, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
 
     rows = []

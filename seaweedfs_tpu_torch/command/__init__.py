@@ -2,13 +2,15 @@
 SeaweedFS weed/weed.go:47, weed/command/command.go:11-45). Run as
 `python -m seaweedfs_tpu_torch <cmd>`.
 
-Subcommands: master, volume, server (master + volume in one process),
-shell, upload, download, version. The volume servers' erasure coder is
-the CUDA card by default (`-coder cuda`): without one they fail at start,
-and nothing falls back to the CPU unless `-coder cpu` asks for it. The
-filer, S3 and the other gateways, the master's Raft group (`-peers`),
-`benchmark` and the offline tools are not part of the port yet: their
-flags fail at start, naming the ROADMAP.md item that will port them.
+Subcommands: master, volume, filer, server (master + volume, and a
+filer with -filer, in one process), shell, upload, download, version.
+The volume servers' erasure coder is the CUDA card by default (`-coder
+cuda`): without one they fail at start, and nothing falls back to the
+CPU unless `-coder cpu` asks for it. S3 and the other gateways, the
+filer's sync, replicate, backup and remote tools, the master's Raft group
+(`-peers`), `benchmark` and the offline tools are not part of the port
+yet: their commands and flags fail at start, naming the ROADMAP.md item
+that will port them (`DEFERRED`).
 """
 
 from __future__ import annotations
@@ -19,8 +21,30 @@ import sys
 import threading
 
 ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
-ROADMAP_FILER = "ROADMAP.md A2d (filer)"
 ROADMAP_S3 = "ROADMAP.md A2d (S3 gateway)"
+ROADMAP_GATEWAYS = "ROADMAP.md A2d (other gateways)"
+ROADMAP_FILER_TOOLS = "ROADMAP.md A2d (filer tools)"
+ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
+ROADMAP_OFFLINE = "ROADMAP.md A2d (offline tools)"
+ROADMAP_BENCHMARK = "ROADMAP.md A6 (benchmark)"
+
+#: the reference's subcommands the port does not carry yet, each with
+#: the ROADMAP.md item that will port it
+DEFERRED = {
+    "s3": ROADMAP_S3,
+    **{c: ROADMAP_GATEWAYS for c in ("webdav", "ftp", "iam", "mq.broker",
+                                     "mount", "fuse")},
+    **{c: ROADMAP_FILER_TOOLS for c in (
+        "filer.sync", "filer.replicate", "filer.backup", "filer.cat",
+        "filer.copy", "filer.meta.tail", "filer.meta.backup")},
+    **{c: ROADMAP_REMOTE for c in ("filer.remote.sync",
+                                   "filer.remote.gateway")},
+    "master.follower": ROADMAP_RAFT,
+    "benchmark": ROADMAP_BENCHMARK,
+    **{c: ROADMAP_OFFLINE for c in ("backup", "compact", "fix", "export",
+                                    "scaffold", "autocomplete",
+                                    "unautocomplete", "update")},
+}
 
 
 def main(argv=None) -> int:
@@ -83,8 +107,23 @@ def main(argv=None) -> int:
                          "runtime switch; .idx stride becomes 17 bytes and "
                          "is not interchangeable with 4-byte index files)")
 
+    fp = sub.add_parser("filer", help="run a filer server")
+    fp.add_argument("-ip", default="localhost")
+    fp.add_argument("-port", type=int, default=8888)
+    fp.add_argument("-master", default="localhost:9333")
+    fp.add_argument("-dir", default="./filer", help="metadata store directory")
+    fp.add_argument("-collection", default="")
+    fp.add_argument("-store", default="sqlite",
+                    help="metadata store kind (memory|sqlite|leveldb); the "
+                         "reference's network stores are not part of the "
+                         "port yet and fail at start")
+    fp.add_argument("-peers", default="",
+                    help="comma-separated peer filers for HA aggregation")
+    fp.add_argument("-maxMB", type=int, default=4,
+                    help="split files into chunks of this many MB")
+
     sp = sub.add_parser("server",
-                        help="master + volume in one process")
+                        help="master + volume (+filer) in one process")
     sp.add_argument("-dir", default="./data")
     sp.add_argument("-ip", default="localhost")
     sp.add_argument("-master.port", dest="master_port", type=int,
@@ -94,8 +133,7 @@ def main(argv=None) -> int:
     sp.add_argument("-coder", default="cuda", choices=["cuda", "cpu"],
                     help="the volume server's erasure coder, as for volume")
     sp.add_argument("-filer", action="store_true",
-                    help="also run a filer (not part of the port yet: "
-                         "fails at start)")
+                    help="also run a filer")
     sp.add_argument("-filer.port", dest="filer_port", type=int, default=8888)
     sp.add_argument("-s3", action="store_true",
                     help="also run an S3 gateway (not part of the port "
@@ -110,9 +148,7 @@ def main(argv=None) -> int:
     shp = sub.add_parser("shell", help="admin shell (commands on stdin)")
     shp.add_argument("-master", default="localhost:9333")
     shp.add_argument("-filer", default="",
-                     help="filer address for fs.*/remote.* commands (not "
-                          "part of the port yet: a non-empty value fails "
-                          "at start)")
+                     help="filer address for the fs.* commands")
 
     up = sub.add_parser("upload", help="upload files")
     up.add_argument("-master", default="localhost:9333")
@@ -127,7 +163,14 @@ def main(argv=None) -> int:
     dp.add_argument("fid")
 
     sub.add_parser("version", help="print version")
+    # registered so that global flags before them parse; they refuse below
+    for name, item in DEFERRED.items():
+        sub.add_parser(name, add_help=False, help=f"refuses: {item}")
 
+    opts, _ = p.parse_known_args(argv)
+    if opts.cmd in DEFERRED:
+        raise SystemExit(f"{opts.cmd} is not part of the PyTorch port yet: "
+                         f"{DEFERRED[opts.cmd]}")
     opts = p.parse_args(argv)
     if opts.cmd is None:
         p.print_help()
@@ -192,9 +235,6 @@ def _run(opts) -> int:
         from ..server.master import MasterServer
         from ..server.volume import VolumeServer
 
-        if opts.filer:
-            raise SystemExit(f"server: -filer is not part of the PyTorch "
-                             f"port yet: {ROADMAP_FILER}")
         if opts.s3:
             raise SystemExit(f"server: -s3 is not part of the PyTorch port "
                              f"yet: {ROADMAP_S3}")
@@ -209,22 +249,53 @@ def _run(opts) -> int:
                                 native=opts.volume_native == "on")
         except (RuntimeError, NotImplementedError) as e:
             raise SystemExit(f"server: {e}")
+        fs = None
+        if opts.filer:
+            from ..server.filer import FilerServer
+
+            try:
+                fs = FilerServer(ip=opts.ip, port=opts.filer_port,
+                                 master=f"{opts.ip}:{opts.master_port}",
+                                 store_dir=opts.dir.split(",")[0] + "/filer")
+            except (ValueError, NotImplementedError) as e:
+                vsrv.stop()  # nothing bound yet; the store lifts its marker
+                raise SystemExit(f"server: {e}")
         ms = MasterServer(ip=opts.ip, port=opts.master_port)
         ms.start()
         vsrv.start()
+        stoppers = [vsrv.stop, ms.stop]
+        if fs is not None:
+            fs.start()
+            stoppers.insert(0, fs.stop)
         _wait_forever()
-        vsrv.stop()
-        ms.stop()
+        for stop in stoppers:
+            stop()
         return 0
 
     if opts.cmd == "shell":
         from ..shell.env import CommandEnv
         from ..shell.registry import repl
 
-        if opts.filer:
-            raise SystemExit(f"shell: -filer is not part of the PyTorch "
-                             f"port yet: {ROADMAP_FILER}")
-        repl(CommandEnv(opts.master))
+        repl(CommandEnv(opts.master, filer=opts.filer))
+        return 0
+
+    if opts.cmd == "filer":
+        from ..server.filer import FilerServer
+
+        try:
+            fs = FilerServer(ip=opts.ip, port=opts.port, master=opts.master,
+                             store_dir=opts.dir, collection=opts.collection,
+                             store=opts.store,
+                             chunk_size=max(1, opts.maxMB) * 1024 * 1024,
+                             peers=[p.strip() for p in opts.peers.split(",")
+                                    if p.strip()])
+        except (ValueError, NotImplementedError) as e:
+            # a store, or a notification queue, the port does not carry:
+            # fail at start, never fall back
+            raise SystemExit(f"filer: {e}")
+        fs.start()
+        _wait_forever()
+        fs.stop()
         return 0
 
     if opts.cmd == "upload":

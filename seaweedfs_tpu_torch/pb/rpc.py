@@ -9,8 +9,8 @@ so service classes are derived from descriptor tables instead of generated
 code — the wire format is identical).
 
 Counterpart of seaweedfs_tpu/pb/rpc.py with the tables that the volume
-server and the master serve or dial. The filer, MQ, S3, mount, IAM, TiKV,
-YDB and etcd tables are not part of the port yet.
+server, the master and the filer serve or dial. The MQ, S3, mount, IAM,
+TiKV, YDB and etcd tables are not part of the port yet.
 
 Convention kept from the reference: a server's gRPC port is its HTTP port
 + 10000 (weed/pb/server_address.go).
@@ -27,6 +27,7 @@ from . import (
     ec_gather_pb2,
     ec_geometry_pb2,
     ec_stream_pb2,
+    filer_pb2,
     master_pb2,
     meta_ring_pb2,
     qos_pb2,
@@ -54,6 +55,7 @@ def _m(name, req, resp, *, cs=False, ss=False):
 
 M = master_pb2
 V = volume_server_pb2
+F = filer_pb2
 
 MASTER_SERVICE = ("master_pb.Seaweed", [
     _m("SendHeartbeat", M.Heartbeat, M.HeartbeatResponse, cs=True, ss=True),
@@ -82,7 +84,8 @@ MASTER_SERVICE = ("master_pb.Seaweed", [
     # lease cluster-wide background byte budgets and report pressure
     _m("QosGrant", qos_pb2.QosGrantRequest, qos_pb2.QosGrantResponse),
     # metadata ring plane (meta_ring.proto; messages in
-    # pb/meta_ring_pb2.py): the port's master answers them UNIMPLEMENTED
+    # pb/meta_ring_pb2.py): filer shards join/renew over their
+    # heartbeat loop, every client plane fetches the published ring
     _m("GetMetaRing", meta_ring_pb2.GetMetaRingRequest,
        meta_ring_pb2.MetaRingResponse),
     _m("JoinMetaRing", meta_ring_pb2.JoinMetaRingRequest,
@@ -167,6 +170,35 @@ VOLUME_SERVICE = ("volume_server_pb.VolumeServer", [
     # offset-addressed survivor ranges from their holders
     _m("VolumeEcShardsRead", ec_gather_pb2.VolumeEcShardsReadRequest,
        ec_gather_pb2.VolumeEcShardsReadResponse, ss=True),
+])
+
+FILER_SERVICE = ("filer_pb.SeaweedFiler", [
+    _m("LookupDirectoryEntry", F.LookupDirectoryEntryRequest, F.LookupDirectoryEntryResponse),
+    _m("ListEntries", F.ListEntriesRequest, F.ListEntriesResponse, ss=True),
+    _m("CreateEntry", F.CreateEntryRequest, F.CreateEntryResponse),
+    _m("UpdateEntry", F.UpdateEntryRequest, F.UpdateEntryResponse),
+    _m("AppendToEntry", F.AppendToEntryRequest, F.AppendToEntryResponse),
+    _m("DeleteEntry", F.DeleteEntryRequest, F.DeleteEntryResponse),
+    _m("AtomicRenameEntry", F.AtomicRenameEntryRequest, F.AtomicRenameEntryResponse),
+    _m("StreamRenameEntry", F.StreamRenameEntryRequest, F.StreamRenameEntryResponse, ss=True),
+    _m("AssignVolume", F.AssignVolumeRequest, F.AssignVolumeResponse),
+    _m("LookupVolume", F.LookupVolumeRequest, F.LookupVolumeResponse),
+    _m("CollectionList", F.CollectionListRequest, F.CollectionListResponse),
+    _m("DeleteCollection", F.DeleteCollectionRequest, F.DeleteCollectionResponse),
+    _m("Statistics", F.StatisticsRequest, F.StatisticsResponse),
+    _m("GetFilerConfiguration", F.GetFilerConfigurationRequest, F.GetFilerConfigurationResponse),
+    _m("SubscribeMetadata", F.SubscribeMetadataRequest, F.SubscribeMetadataResponse, ss=True),
+    _m("SubscribeLocalMetadata", F.SubscribeMetadataRequest, F.SubscribeMetadataResponse, ss=True),
+    _m("KvGet", F.KvGetRequest, F.KvGetResponse),
+    _m("KvPut", F.KvPutRequest, F.KvPutResponse),
+    _m("CacheRemoteObjectToLocalCluster", F.CacheRemoteObjectToLocalClusterRequest,
+       F.CacheRemoteObjectToLocalClusterResponse),
+    _m("Ping", F.PingRequest, F.PingResponse),
+    # metadata ring proxy: a shard serves the ring it is routing under,
+    # so gateways bootstrap from their seed filer without ever holding
+    # a master address
+    _m("GetMetaRing", meta_ring_pb2.GetMetaRingRequest,
+       meta_ring_pb2.MetaRingResponse),
 ])
 
 # -- generic stub / servicer -----------------------------------------------
@@ -449,3 +481,7 @@ def master_stub(address: str) -> Stub:
 
 def volume_stub(address: str) -> Stub:
     return Stub(cached_channel(address), VOLUME_SERVICE, address)
+
+
+def filer_stub(address: str) -> Stub:
+    return Stub(cached_channel(address), FILER_SERVICE, address)

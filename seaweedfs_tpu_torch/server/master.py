@@ -15,11 +15,11 @@ master_server_handlers.go). Serves:
 The port's master runs alone. Its Raft group (`peers=`, `-peers`,
 master/raft.py) is not part of the port yet: asking for peers fails at
 construction, RaftAddServer/RaftRemoveServer answer UNIMPLEMENTED and
-RaftListClusterServers lists this one master as the leader. The metadata
-ring's GetMetaRing/JoinMetaRing answer UNIMPLEMENTED, and /ui answers 501;
-each names the ROADMAP.md item that will port it. Volume placement draws
-from an explicit generator (`placement_seed=`) where the reference draws
-from the global `random` module.
+RaftListClusterServers lists this one master as the leader, and /ui
+answers 501; each names the ROADMAP.md item that will port it. The master
+is the metadata ring's authority (GetMetaRing, JoinMetaRing). Volume
+placement draws from an explicit generator (`placement_seed=`) where the
+reference draws from the global `random` module.
 """
 
 from __future__ import annotations
@@ -54,7 +54,6 @@ from ..utils.stats import (
 
 # ROADMAP.md items that will port what this module refuses
 ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
-ROADMAP_META_RING = "ROADMAP.md A2d (metadata ring)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
 
 
@@ -121,6 +120,15 @@ class MasterServer:
         self._admin_lock_mu = locks.wlock("master.admin_locks", rank=60)
         self._keepalive_clients: dict[str, queue.Queue] = {}
         self._keepalive_mu = locks.wlock("master.keepalive", rank=70)
+        # the metadata ring's authority: filer shards join/renew over
+        # JoinMetaRing, every membership change bumps the epoch, and
+        # clients fetch the published picture via GetMetaRing (direct or
+        # proxied by any shard). Empty ring = unpartitioned deployment,
+        # nothing routes.
+        from ..cluster.metaring import MetaRing
+
+        self.meta_ring = MetaRing([])
+        self._meta_ring_mu = locks.wlock("master.meta_ring", rank=50)
         # filer/broker group membership + leader hinting (weed/cluster)
         self.cluster = Cluster()
         self._grpc_server = None
@@ -332,6 +340,41 @@ class MasterServer:
             with self._keepalive_mu:
                 for q in self._keepalive_clients.values():
                     q.put(msg)
+
+    def meta_ring_join(self, address: str, leave: bool = False):
+        """Ring membership mutation (JoinMetaRing): idempotent — a shard
+        re-announcing over its heartbeat loop neither bumps the epoch
+        nor disturbs routing, so a crashed-and-restarted shard rejoins
+        at the SAME ring position. -> the current ring snapshot."""
+        from ..utils.stats import META_RING_EPOCH, META_RING_SHARDS
+
+        changed = False
+        with self._meta_ring_mu:
+            ring = self.meta_ring
+            present = address in ring.shards
+            if leave and present:
+                self.meta_ring = ring.without_shard(address)
+                changed = True
+            elif not leave and not present:
+                self.meta_ring = ring.with_shard(address)
+                changed = True
+            ring = self.meta_ring
+        if changed:
+            META_RING_EPOCH.set(ring.epoch)
+            META_RING_SHARDS.set(len(ring))
+            glog.info(f"meta ring epoch {ring.epoch}: "
+                      f"{'-' if leave else '+'}{address} "
+                      f"({len(ring)} shard(s))")
+            # nudge every KeepConnected client: shards and gateways
+            # refetch the ring on any metaRingShard update instead of
+            # waiting out their cache TTL
+            with self._keepalive_mu:
+                for q in self._keepalive_clients.values():
+                    q.put(master_pb2.KeepConnectedResponse(
+                        cluster_node_update=master_pb2.ClusterNodeUpdate(
+                            node_type="metaRingShard", address=address,
+                            is_add=not leave)))
+        return ring
 
     def _broadcast_location(self, dn, new_vids, deleted_vids) -> None:
         msg = master_pb2.KeepConnectedResponse(
@@ -693,12 +736,24 @@ class MasterGrpc:
         )
 
     def GetMetaRing(self, request, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      _not_ported("GetMetaRing", ROADMAP_META_RING))
+        """Metadata ring fetch: the published membership and epoch;
+        clients derive the identical virtual-node layout."""
+        from ..pb import meta_ring_pb2
+
+        resp = meta_ring_pb2.MetaRingResponse()
+        self.ms.meta_ring.fill_response(resp)
+        return resp
 
     def JoinMetaRing(self, request, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      _not_ported("JoinMetaRing", ROADMAP_META_RING))
+        """Shard join/renew/leave — the response doubles as an
+        epoch-bumped ring update riding the shard's heartbeat loop."""
+        from ..pb import meta_ring_pb2
+
+        ring = self.ms.meta_ring_join(request.address,
+                                      leave=request.leave)
+        resp = meta_ring_pb2.MetaRingResponse()
+        ring.fill_response(resp)
+        return resp
 
     def QosGrant(self, request, context):
         """QoS plane: lease background byte budget to a volume
@@ -819,6 +874,7 @@ def _make_http_handler(ms: MasterServer):
                         **qos_stats(),
                         "ledger": ms.qos_ledger.status(),
                     },
+                    "MetaRing": ms.meta_ring.describe(),
                 })
             if u.path == "/debug/traces":
                 return self._json(trace.debug_traces_payload(q))

@@ -1,9 +1,11 @@
-# the command modules of the port; the reference's fs.*, remote.* and
-# s3/mq commands need the filer and gateways (ROADMAP.md A2d)
+# the command modules of the port; `deferred` registers the reference's
+# remote.*, s3.* and mq.* commands, each failing with its ROADMAP.md item
 from . import (  # noqa: F401
     cluster,
     collection,
+    deferred,
     ec,
+    fs,
     lock,
     qos_cmd,
     trace_cmd,

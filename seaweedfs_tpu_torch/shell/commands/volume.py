@@ -3,8 +3,9 @@ seaweedfs_tpu/shell/commands/volume.py; SeaweedFS
 weed/shell/command_volume_*.go).
 
 `volume.tier.upload`, `volume.tier.download` and `volume.tier.move`
-(tiered storage) and `volume.fsck` (it walks a filer) are registered but
-not part of the port yet: each fails, naming its ROADMAP.md item.
+(tiered storage) are registered but not part of the port yet: each
+fails, naming its ROADMAP.md item. `volume.fsck` walks the filer given
+with `shell -filer`.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from ...pb import master_pb2, volume_server_pb2 as vs
 from ..registry import command
 
 ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
-ROADMAP_FILER = "ROADMAP.md A2d (filer)"
 
 
 def _not_ported(name: str, item: str):
@@ -527,8 +527,55 @@ def volume_grow(env, args, out):
 @command("volume.fsck",
          "volume.fsck [-verbose] — cross-check filer chunks vs volumes")
 def volume_fsck(env, args, out):
-    """command_volume_fsck.go: walks the filer namespace."""
-    _not_ported("volume.fsck", ROADMAP_FILER)
+    """command_volume_fsck.go (simplified): walk the filer namespace,
+    verify every referenced chunk's volume exists in the topology and the
+    needle is readable; report dangling references."""
+    import requests
+
+    from ...pb import filer_pb2
+    from ...pb import rpc as _rpc
+
+    verbose = "-verbose" in args
+    stub = _rpc.filer_stub(_rpc.grpc_address(env.require_filer()))
+    topo = env.volume_list().topology_info
+    known_vids = set()
+    for dc in topo.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                for disk in dn.disk_infos.values():
+                    known_vids.update(v.id for v in disk.volume_infos)
+                    known_vids.update(
+                        ec.id for ec in disk.ec_shard_infos)
+    checked = missing_vol = unreadable = 0
+
+    def walk(d):
+        nonlocal checked, missing_vol, unreadable
+        for resp in stub.ListEntries(filer_pb2.ListEntriesRequest(
+                directory=d, limit=1 << 20)):
+            e = resp.entry
+            path = d.rstrip("/") + "/" + e.name
+            if e.is_directory:
+                walk(path)
+                continue
+            for c in e.chunks:
+                checked += 1
+                vid = int(c.file_id.split(",")[0])
+                if vid not in known_vids:
+                    missing_vol += 1
+                    print(f"  {path}: chunk {c.file_id}: volume {vid} "
+                          f"not in topology", file=out)
+                    continue
+                if verbose:
+                    urls = env.master_client.lookup_file_id(c.file_id)
+                    r = requests.head(urls[0], timeout=10)
+                    if r.status_code != 200:
+                        unreadable += 1
+                        print(f"  {path}: chunk {c.file_id}: HTTP "
+                              f"{r.status_code}", file=out)
+
+    walk("/")
+    print(f"checked {checked} chunks: {missing_vol} dangling volume refs, "
+          f"{unreadable} unreadable", file=out)
 
 
 @command("volume.delete.empty",

@@ -19,9 +19,16 @@ LOCK_NAME = "admin"
 class CommandEnv:
     def __init__(self, masters: str | list[str], *, filer: str = ""):
         self.master_client = MasterClient(masters)
-        self.filer = filer  # a filer qos.status and trace.dump also ask
+        self.filer = filer  # filer address for fs.* commands
+        self.cwd = "/"      # fs.cd state
         self._lock_token = 0
         self._lock_ts = 0
+
+    def require_filer(self) -> str:
+        if not self.filer:
+            raise RuntimeError(
+                "this command needs a filer; start the shell with -filer")
+        return self.filer
 
     @property
     def master(self) -> str:

@@ -72,3 +72,14 @@ def parse_duration(spec: str, *, flag: str = "duration") -> float:
 
 # importing the command modules registers them
 from . import commands  # noqa: E402,F401
+
+
+def kv_flags(args) -> dict:
+    """Shared '-k=v' / bare '-flag' parser for simple commands (richer
+    commands use argparse)."""
+    out = {}
+    for a in args:
+        if a.startswith("-"):
+            k, _, v = a[1:].partition("=")
+            out[k] = v
+    return out

@@ -61,6 +61,16 @@ def get_path(conf: dict, dotted: str, default=None):
     return node
 
 
+def enabled_notification_queue(config: dict) -> str:
+    """The queue a notification.toml enables, or "" (the shape the
+    reference's notification.load_configuration reads)."""
+    section = config.get("notification", config)
+    for name, sub in section.items():
+        if isinstance(sub, dict) and sub.get("enabled"):
+            return name
+    return ""
+
+
 def load_security_config():
     """security.toml -> (write_key, read_key, whitelist) the way servers
     consume it (security.toml jwt.signing sections)."""

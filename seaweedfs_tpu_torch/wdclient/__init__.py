@@ -13,8 +13,8 @@ vid-cache entries are invalidated on lookup misses, and
 `ec_fallback_urls` surfaces EC-shard holders as last-resort read
 targets when every plain replica of a volume is gone.
 
-The metadata-ring client (`MetaRingClient`, the filer shards' namespace
-router) is not part of the port yet: ROADMAP.md A2d.
+`MetaRingClient` routes namespace operations over the filer shards of
+the master-published metadata ring.
 """
 
 from __future__ import annotations
@@ -261,3 +261,124 @@ class MasterClient:
                         self._leader = self.masters[0]
                 if stop.wait(1.0):
                     break
+
+
+# -- metadata ring client ------------------------------------------------
+
+# Client-side ring cache TTL in seconds. The TTL only bounds staleness
+# BETWEEN invalidations — a 410 wrong-shard answer refreshes immediately.
+META_RING_TTL_S = 10.0
+
+
+class MetaRingClient:
+    """TTL'd cache of the master-published metadata ring.
+
+    The vid-cache invalidation ladder applied to namespace
+    routing: route from the cached ring; when a shard answers 410 +
+    its current epoch, drop the cache if that epoch is newer, refetch,
+    and retry ONCE. Fetches go to the master when one is configured,
+    else to a seed filer's GetMetaRing proxy — any shard serves the
+    ring it routes under, so gateways never need a master address."""
+
+    def __init__(self, *, master: MasterClient | None = None,
+                 filer_grpc: str = "", ttl: float | None = None):
+        self.master = master
+        self.filer_grpc = filer_grpc
+        self.ttl = META_RING_TTL_S if ttl is None else ttl
+        self._ring = None
+        self._expires = 0.0
+        self._lock = threading.Lock()
+
+    def _fetch(self, trigger: str):
+        from ..cluster.metaring import MetaRing
+        from ..pb import meta_ring_pb2
+        from ..utils.stats import META_RING_EPOCH, META_RING_FETCHES
+
+        req = meta_ring_pb2.GetMetaRingRequest()
+        try:
+            if self.master is not None:
+                resp = self.master._with_master(
+                    "GetMetaRing",
+                    lambda stub: stub.GetMetaRing(req, timeout=10))
+            else:
+                resp = rpc.filer_stub(self.filer_grpc).GetMetaRing(
+                    req, timeout=10)
+        except grpc.RpcError:
+            META_RING_FETCHES.inc(trigger=trigger, result="error")
+            raise
+        META_RING_FETCHES.inc(trigger=trigger, result="ok")
+        ring = MetaRing.from_response(resp)
+        META_RING_EPOCH.set(ring.epoch)
+        return ring
+
+    def ring(self, *, refresh: bool = False, trigger: str = "ttl"):
+        """Current ring snapshot (cached). grpc.RpcError propagates when
+        the fetch target is down AND no cached picture exists — callers
+        holding a stale ring keep routing on it rather than failing."""
+        now = time.time()
+        with self._lock:
+            if not refresh and self._ring is not None \
+                    and self._expires > now:
+                return self._ring
+        try:
+            ring = self._fetch(trigger)
+        except grpc.RpcError:
+            with self._lock:
+                if self._ring is not None:
+                    return self._ring  # stale beats unreachable
+            raise
+        with self._lock:
+            # an epoch can only move forward; a lagging answer (e.g. a
+            # follower proxy) must not roll the cache back
+            if self._ring is None or ring.epoch >= self._ring.epoch:
+                self._ring = ring
+            self._expires = time.time() + self.ttl
+            return self._ring
+
+    def note_epoch(self, epoch: int) -> bool:
+        """Feed an epoch observed on a 410 answer; drops the cache when
+        it proves the cached ring stale. -> True when invalidated."""
+        with self._lock:
+            if self._ring is not None and epoch > self._ring.epoch:
+                self._expires = 0.0
+                return True
+        return False
+
+    # -- routing -----------------------------------------------------------
+
+    def route_entry(self, full_path: str, default: str = "") -> str:
+        """HTTP address of the shard owning an entry (hashes the parent
+        directory); `default` on an empty/unfetchable ring."""
+        try:
+            ring = self.ring()
+        except grpc.RpcError:
+            return default
+        return ring.shard_for_entry(full_path) or default
+
+    def route_directory(self, directory: str, default: str = "") -> str:
+        """HTTP address of the shard owning a directory listing."""
+        try:
+            ring = self.ring()
+        except grpc.RpcError:
+            return default
+        return ring.shard_for_directory(directory) or default
+
+    def call_routed(self, key: str, fn, *, directory: bool = False,
+                    default: str = ""):
+        """Run fn(shard_http_address) with the one stale-ring retry:
+        a WrongShardError feeds its epoch back, forces a refresh and
+        re-routes exactly once — converged clients never loop."""
+        from ..cluster.metaring import WrongShardError
+
+        route = (self.route_directory if directory else self.route_entry)
+        try:
+            return fn(route(key, default))
+        except WrongShardError as e:
+            self.note_epoch(e.epoch)
+            try:
+                ring = self.ring(refresh=True, trigger="stale")
+            except grpc.RpcError:
+                raise e from None
+            owner = (ring.shard_for_directory(key) if directory
+                     else ring.shard_for_entry(key))
+            return fn(owner or default)

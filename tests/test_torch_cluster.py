@@ -727,10 +727,8 @@ def test_server_command_runs_master_and_volume_in_one_process(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["master", "-peers", "127.0.0.1:1,127.0.0.1:2"],
-    ["server", "-filer"],
     ["server", "-s3"],
     ["server", "-volume.nativeDataPlane", "on", "-coder", "cpu"],
-    ["shell", "-filer", "127.0.0.1:1"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
 def test_options_not_ported_refuse_at_start(argv, tmp_path):
     if argv[0] == "server":

@@ -24,6 +24,7 @@ import requests
 from seaweedfs_tpu import cluster as ref_cluster
 from seaweedfs_tpu import sequence as ref_sequence
 from seaweedfs_tpu.pb import master_pb2 as ref_master_pb2
+from seaweedfs_tpu.pb import meta_ring_pb2 as ref_ring_pb2
 from seaweedfs_tpu.pb import rpc as ref_rpc
 from seaweedfs_tpu.server import master as ref_master
 from seaweedfs_tpu.shell import env as ref_env
@@ -34,6 +35,7 @@ from seaweedfs_tpu.utils import trace as ref_trace
 from seaweedfs_tpu_torch import cluster
 from seaweedfs_tpu_torch import sequence
 from seaweedfs_tpu_torch.pb import master_pb2
+from seaweedfs_tpu_torch.pb import meta_ring_pb2
 from seaweedfs_tpu_torch.pb import rpc
 from seaweedfs_tpu_torch.server import master
 from seaweedfs_tpu_torch.shell import env as port_env
@@ -45,10 +47,10 @@ from seaweedfs_tpu_torch.topology import volume_growth
 SEEDS = range(6)
 REF = dict(sequence=ref_sequence, master=ref_master, pb=ref_master_pb2,
            growth=ref_growth, RP=RefRP, env=ref_env, ec=ref_ec,
-           cluster=ref_cluster, rpc=ref_rpc)
+           cluster=ref_cluster, rpc=ref_rpc, ring_pb=ref_ring_pb2)
 PORT = dict(sequence=sequence, master=master, pb=master_pb2,
             growth=volume_growth, RP=ReplicaPlacement, env=port_env,
-            ec=port_ec, cluster=cluster, rpc=rpc)
+            ec=port_ec, cluster=cluster, rpc=rpc, ring_pb=meta_ring_pb2)
 
 
 @pytest.fixture(autouse=True)
@@ -463,6 +465,18 @@ def _answers(name: str) -> dict:
             lock_name="admin", previous_token=lease.token), timeout=30)
         out["relock"] = bool(stub.LeaseAdminToken(pb.LeaseAdminTokenRequest(
             lock_name="admin", client_name="b"), timeout=30).token)
+        # the metadata ring: two shards join, one renews (no epoch bump),
+        # one leaves; every answer is the published ring
+        ring_pb = mods["ring_pb"]
+        answers = [stub.JoinMetaRing(ring_pb.JoinMetaRingRequest(
+            address=a, leave=leave), timeout=30).SerializeToString(
+                deterministic=True)
+            for a, leave in (("127.0.0.1:1", False), ("127.0.0.1:2", False),
+                             ("127.0.0.1:1", False), ("127.0.0.1:1", True))]
+        out["JoinMetaRing"] = answers
+        out["GetMetaRing"] = stub.GetMetaRing(
+            ring_pb.GetMetaRingRequest(), timeout=30).SerializeToString(
+                deterministic=True)
     finally:
         http.close()
         _stop(ms, mods)
@@ -472,13 +486,12 @@ def _answers(name: str) -> dict:
 
 @pytest.mark.parametrize("key", HTTP_PATHS + (
     "VolumeList", "LookupEcVolume", "Statistics", "CollectionList", "Config",
-    "Raft", "lock", "relock"))
+    "Raft", "lock", "relock", "JoinMetaRing", "GetMetaRing"))
 def test_the_master_answers_like_the_reference(key):
     assert _answers("port")[key] == _answers("ref")[key]
 
 
-PORT_ONLY = ("RaftAddServer", "RaftRemoveServer", "GetMetaRing",
-             "JoinMetaRing")
+PORT_ONLY = ("RaftAddServer", "RaftRemoveServer")
 
 
 @pytest.mark.parametrize("name", PORT_ONLY)
@@ -570,7 +583,6 @@ def test_the_ui_answers_501_naming_its_item():
     "volume.tier.upload -node a:1 -volumeId 1 -dest s3",
     "volume.tier.download -node a:1 -volumeId 1",
     "volume.tier.move -toDiskType ssd",
-    "volume.fsck",
     "cluster.raft.add -id=a:1",
     "cluster.raft.remove -id=a:1",
 ])
@@ -586,10 +598,13 @@ def test_the_port_shell_registers_the_reference_commands_it_ports():
     from seaweedfs_tpu.shell.registry import COMMANDS as REF_COMMANDS
     from seaweedfs_tpu_torch.shell.registry import COMMANDS
 
+    from seaweedfs_tpu_torch.shell.commands.deferred import DEFERRED
+
     ported = {n for n in REF_COMMANDS
               if n.split(".")[0] in ("volume", "volumeServer", "ec", "lock",
                                      "unlock", "cluster", "collection",
-                                     "qos", "trace")}
+                                     "qos", "trace", "fs")}
     assert ported <= set(COMMANDS) <= set(REF_COMMANDS)
-    assert not [n for n in COMMANDS if n.startswith(("fs.", "remote.", "s3.",
-                                                     "mq."))]
+    # the remote.*, s3.* and mq.* commands are registered only to refuse
+    assert not [n for n in COMMANDS if n.startswith(("remote.", "s3.", "mq."))
+                and n not in DEFERRED]
