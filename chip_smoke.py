@@ -54,7 +54,29 @@ and prints no result without them. Phases, each printing its own line:
                      reconstruct lanes). Shards against the cpu coder;
                      K3 launches must equal the encode lane's batches, and
                      some batch must have stacked more than one slab
-  7. store           the volume server's storage layer: a Store over a
+  7. mesh            the multi-GPU coder (parallel/mesh.ShardedCoder) over
+                     the one card listed twice, [cuda:0, cuda:0]: entry()
+                     (K2) and dryrun_multichip(2); the column split of
+                     RS(10,4) at [10, 1 MiB + 4093], reconstruct_stacked
+                     and the V-axis split with shards {0, 5, 13} lost, the
+                     parity probe (0 clean, the flipped byte's value
+                     after one flip), with K1 ("xor") and then K2
+                     ("bits"), each against the single-device
+                     RSCodecTorch, the plain version and the numpy coder;
+                     4 seeded volumes of 64 MiB encoding at once through
+                     the scheduler's per-chip lanes (encode slabs and
+                     batches on chip 0 and chip 1, reason chip_affine),
+                     shards against the numpy coder, their 3-shard
+                     rebuild at once (some batch through the V split,
+                     sha-identical); an lrc_10_2_2 volume encoded and
+                     rebuilt and a pm_mbr_6_3_5 stripe encoded and one
+                     node repaired on the mesh, against the numpy coder;
+                     RSCodecNative and the XOR schedule (g++ build of
+                     this machine) at [4,10] x 1 MiB against rs_cpu. The
+                     current CUDA device must be the same after every
+                     launch on another entry. Two entries of one card
+                     share its SMs: no multi-GPU speed is measured
+  8. store           the volume server's storage layer: a Store over a
                      fresh directory with its default coder (new_coder():
                      cuda, K1, the dispatch scheduler) takes seeded needles
                      of 1-64 KiB through Store.write_needle until the .dat
@@ -71,7 +93,7 @@ and prints no result without them. Phases, each printing its own line:
                      sha256s against the numpy cpu coder, rebuilt shards
                      sha-identical, reads byte-exact, the dirty marker
                      lifted by close()
-  8. server          the volume server as a process: `python3 -m
+  9. server          the volume server as a process: `python3 -m
                      seaweedfs_tpu_torch volume` with its default coder
                      (cuda, K1) and an unreachable master; over gRPC
                      AllocateVolume, 512 MiB of seeded 1-64 KiB needles
@@ -89,7 +111,7 @@ and prints no result without them. Phases, each printing its own line:
                      server's /status (dispatch lanes) and /metrics (K1
                      launches by R) show each step's EC work ran K1 on the
                      card
-  9. cluster         the operator's path through a cluster of processes:
+ 10. cluster         the operator's path through a cluster of processes:
                      `python3 -m seaweedfs_tpu_torch master`
                      (-volumeSizeLimitMB 1024, -defaultReplication 001) and
                      four `volume` servers with their default coder (cuda,
@@ -133,7 +155,7 @@ and prints no result without them. Phases, each printing its own line:
                      dirty marker. Each step's wall and rate, K1's
                      launches by R summed from every server's /metrics,
                      and the host's NUMA layout
- 10. filer           the filer as an operator runs it, as processes: a
+ 11. filer           the filer as an operator runs it, as processes: a
                      `master` (-volumeSizeLimitMB 256), four `volume`
                      servers with their default coder (cuda, K1) in racks
                      r0, r0, r1, r1 and a `filer` (-store sqlite, the
@@ -163,13 +185,15 @@ and prints no result without them. Phases, each printing its own line:
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
 pipeline phases (a short loop for one kernel; K1's are pipeline, store,
-server, cluster and filer); the run says what it skipped.
+server, cluster and filer; the mesh phase needs K1 and K2, so it runs only
+without --only); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
 read just after; a kernel that path never launched fails the run. The
 server phase's counts start at 0 with its process and are read from its
 /metrics before and after each step. K1's count in the JSON line is the sum
-over its five phases. K1's launches are also split by R (1 or 2: a
+over its six phases (pipeline, mesh, store, server, cluster, filer), K2's
+over pipeline-bits and mesh. K1's launches are also split by R (1 or 2: a
 degraded read through EcVolume, 4: a degraded GET through the server, 3:
 rebuild, 4: encode). The
 last lines are one JSON object of kernel numbers, the nvidia-smi line, and
@@ -1037,6 +1061,305 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
     finally:
         shutil.rmtree(vdir)
         os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
+
+
+# -- mesh -----------------------------------------------------------------------
+
+
+MESH_VOLUMES = 4
+MESH_VOLUME_MB = 64
+MESH_LRC_MB = 16
+# the column split's width: 1 MiB and a ragged tail, no multiple of 8 * 2
+MESH_WIDTH = MIB + 4093
+MESH_REBUILD_BATCH = MIB  # every rebuild slab 1 MiB wide: one uniform lane
+MESH_WINDOW_MS = "20"  # lets the four rebuilds' slabs meet in one flush
+MESH_FLIP = (7, 12345, 0x5A)  # (shard, byte, mask) of the probe's flip
+
+
+def _mesh_step(phase: str, what: str, t0: float) -> float:
+    s = time.perf_counter() - t0
+    log(phase, f"{what}: {s:.3f} s")
+    return s
+
+
+def _check_device(phase: str, want: int) -> None:
+    """The launchers give the calling thread its current device back."""
+    got = torch.cuda.current_device()
+    if got != want:
+        raise AssertionError(f"{phase}: a launch moved the current CUDA "
+                             f"device from {want} to {got}")
+
+
+def mesh_phase(seed: int, workdir: str, card: str,
+               dev: torch.device = torch.device("cuda", 0)) -> dict:
+    """The multi-GPU coder (parallel/mesh.py) over the one card listed
+    twice: entry() and dryrun_multichip(2); ShardedCoder with K1 ("xor")
+    and K2 ("bits"): the column split, reconstruct_stacked, the V-axis
+    split and the parity probe against the single-device RSCodecTorch,
+    the plain version and the numpy coder; four volumes encoding at once
+    through the scheduler's per-chip lanes and their concurrent 3-shard
+    rebuild (the V-split branch); an lrc_10_2_2 volume and a pm_mbr_6_3_5
+    stripe; the native host coders. Two entries of one card share its
+    SMs: the phase checks the splits and lanes, it measures no multi-GPU
+    speed."""
+    from seaweedfs_tpu_torch import entry
+    from seaweedfs_tpu_torch.ops import rs_native
+    from seaweedfs_tpu_torch.parallel import mesh
+
+    phase = "mesh"
+    torch.cuda.set_device(dev)
+    here = torch.cuda.current_device()
+    mesh2 = mesh.make_mesh([dev, dev])
+    rng = np.random.default_rng(seed)
+    cpu = new_coder(backend="cpu")
+    data = rng.integers(0, 256, (10, MESH_WIDTH), dtype=np.uint8)
+    shards = np.concatenate([data, cpu.encode_parity(data)])
+    present = tuple(i for i in range(14) if i not in REBUILD_LOST)
+    survivors = shards[list(present)]
+    quarter = MESH_WIDTH // 4
+    vstack = np.stack([survivors[:, i * quarter:(i + 1) * quarter]
+                       for i in range(4)])
+    bad = shards.copy()
+    row, col, mask = MESH_FLIP
+    bad[row, col] ^= mask
+    bad_probe = int((cpu.encode_parity(bad[:10]) ^ bad[10:]).max())
+    # the single-device codec's and the plain versions' answers, computed
+    # before the counts start: comparison launches do not count
+    single = RSCodecTorch(10, 4, device=dev)
+    on_card = torch.from_numpy(data).to(dev)
+    expect = {}
+    for kernel, name in (("xor", "gf_xor"), ("bits", "gf_bits")):
+        os.environ["SEAWEEDFS_TORCH_KERNEL"] = kernel
+        try:
+            expect[kernel] = dict(
+                parity=single.encode_parity(data).cpu().numpy(),
+                rows=single.reconstruct_stacked(
+                    present, survivors)[1].cpu().numpy(),
+                plain=_run(name, _operand(kernel, gf256.parity_matrix(
+                    10, 4), dev), on_card, plain=True).cpu().numpy())
+        finally:
+            os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
+    torch.cuda.synchronize()
+    for spec in KERNELS.values():
+        spec["module"].KERNEL.reset()
+    steps = {}
+    vdir = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    old_window = os.environ.get("SWFS_EC_DISPATCH_WINDOW_MS")
+    os.environ["SWFS_EC_DISPATCH_WINDOW_MS"] = MESH_WINDOW_MS
+    try:
+        # 1. the entry points
+        t0 = time.perf_counter()
+        fn, (example,) = entry.entry()
+        out = fn(example).cpu().numpy()
+        if not (np.array_equal(out[:10], example)
+                and np.array_equal(out[10:], cpu.encode_parity(example))):
+            raise AssertionError(f"{phase}: entry() differs from the cpu "
+                                 f"coder")
+        entry.dryrun_multichip(2)
+        _check_device(phase, here)
+        steps["entry"] = _mesh_step(
+            phase, "entry() (K2) and dryrun_multichip(2) over [cuda:0, "
+                   "cuda:0] (encode, 4-shard reconstruct, probe, file "
+                   "pipeline against the cpu coder)", t0)
+
+        # 2. the splits, with each kernel
+        for kernel in ("xor", "bits"):
+            t0 = time.perf_counter()
+            coder = mesh.ShardedCoder(10, 4, mesh=mesh2, kernel=kernel)
+            parity = coder.encode_parity(data).cpu().numpy()
+            _check_device(phase, here)
+            for what, want in (("the cpu coder", shards[10:]),
+                               ("RSCodecTorch", expect[kernel]["parity"]),
+                               ("the plain version", expect[kernel]["plain"])):
+                if not np.array_equal(parity, want):
+                    raise AssertionError(f"{phase}: {kernel} column split "
+                                         f"differs from {what}")
+            missing, rows = coder.reconstruct_stacked(present, survivors)
+            rows = rows.cpu().numpy()
+            if (missing != REBUILD_LOST
+                    or not np.array_equal(rows, shards[list(REBUILD_LOST)])
+                    or not np.array_equal(rows, expect[kernel]["rows"])):
+                raise AssertionError(f"{phase}: {kernel} reconstruct_stacked "
+                                     f"differs")
+            missing, vrows = coder.reconstruct_stacked_vsharded(present,
+                                                                vstack)
+            vrows = vrows.cpu().numpy()
+            for i in range(4):
+                if not np.array_equal(
+                        vrows[i], rows[:, i * quarter:(i + 1) * quarter]):
+                    raise AssertionError(f"{phase}: {kernel} V-split slab "
+                                         f"{i} differs")
+            clean = int(coder.parity_probe(shards))
+            flipped = int(coder.parity_checksum(bad))
+            if clean != 0 or flipped != bad_probe or flipped == 0:
+                raise AssertionError(f"{phase}: {kernel} probe {clean}, "
+                                     f"{flipped} (want 0, {bad_probe})")
+            _check_device(phase, here)
+            steps[kernel] = _mesh_step(
+                phase, f"ShardedCoder({kernel}): column split of [10, "
+                       f"{MESH_WIDTH}], reconstruct_stacked and the V split "
+                       f"of 4 slabs with {list(REBUILD_LOST)} lost, probe "
+                       f"0 clean and {flipped} after a flip; equal to "
+                       f"RSCodecTorch, the plain version and the cpu coder",
+                t0)
+
+        # 3. four volumes at once through the per-chip lanes, then their
+        # rebuilds at once (the V split of a big uniform batch)
+        geo = Geometry()
+        bases = [os.path.join(vdir, str(v + 1)) for v in range(MESH_VOLUMES)]
+        for v, b in enumerate(bases):
+            make_volume(b, MESH_VOLUME_MB * MIB, seed + v)
+        coder = mesh.ShardedCoder(10, 4, mesh=mesh2, kernel="xor")
+        vsplits = []
+        real_vsplit = coder.reconstruct_stacked_vsharded
+
+        def counted_vsplit(*args, **kw):
+            vsplits.append(np.asarray(args[1]).shape[0])
+            return real_vsplit(*args, **kw)
+
+        coder.reconstruct_stacked_vsharded = counted_vsplit
+        slabs0 = ec_stats.EC_DISPATCH_SLABS.split_by("chip", lane="encode")
+        batches0 = ec_stats.EC_DISPATCH_BATCHES.split_by("chip",
+                                                         lane="encode")
+        affine0 = ec_stats.EC_DISPATCH_BATCHES.value(reason="chip_affine")
+        dat_bytes = sum(os.path.getsize(b + ".dat") for b in bases)
+        t0 = time.perf_counter()
+        _all_at_once(lambda b: ec_files.write_ec_files(b, coder, geo), bases)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        _check_device(phase, here)
+        slabs = {c: n - slabs0.get(c, 0) for c, n in
+                 ec_stats.EC_DISPATCH_SLABS.split_by(
+                     "chip", lane="encode").items()}
+        batches = {c: n - batches0.get(c, 0) for c, n in
+                   ec_stats.EC_DISPATCH_BATCHES.split_by(
+                       "chip", lane="encode").items()}
+        affine = ec_stats.EC_DISPATCH_BATCHES.value(
+            reason="chip_affine") - affine0
+        if not (slabs.get("0", 0) > 0 and slabs.get("1", 0) > 0
+                and batches.get("0", 0) > 0 and batches.get("1", 0) > 0
+                and affine > 0):
+            raise AssertionError(f"{phase}: encode slabs {slabs}, batches "
+                                 f"{batches}, chip_affine {affine}: not on "
+                                 f"both chip lanes")
+        t1 = time.perf_counter()
+        hashes = [h for h, _ in _all_at_once(
+            lambda b: check_shards(phase, b, geo, workdir), bases)]
+        oracle_s = time.perf_counter() - t1
+        steps["encode"] = enc_s
+        log(phase, f"encode of {MESH_VOLUMES} x {MESH_VOLUME_MB} MiB at once "
+                   f"through the chip lanes: {dat_bytes} B in {enc_s:.3f} s; "
+                   f"encode slabs by chip {slabs}, batches by chip "
+                   f"{batches}, {affine:.0f} batches chip_affine; "
+                   f"{MESH_VOLUMES * 14} shard sha256s match the numpy cpu "
+                   f"coder ({oracle_s:.1f} s)")
+
+        def rebuild(base):
+            for i in REBUILD_LOST:
+                os.remove(geo.shard_file_name(base, i))
+            return ec_files.rebuild_ec_files(base, coder, geo,
+                                             batch_size=MESH_REBUILD_BATCH)
+
+        rec0 = ec_stats.EC_DISPATCH_BATCHES.split_by("chip",
+                                                     lane="reconstruct")
+        t0 = time.perf_counter()
+        got = _all_at_once(rebuild, bases)
+        torch.cuda.synchronize()
+        reb_s = time.perf_counter() - t0
+        rec = {c: n - rec0.get(c, 0) for c, n in
+               ec_stats.EC_DISPATCH_BATCHES.split_by(
+                   "chip", lane="reconstruct").items()}
+        if any(tuple(g) != REBUILD_LOST for g in got):
+            raise AssertionError(f"{phase}: rebuilt {got}")
+        if [shard_hashes(b, geo) for b in bases] != hashes:
+            raise AssertionError(f"{phase}: rebuilt shards differ")
+        if not vsplits:
+            raise AssertionError(f"{phase}: no rebuild batch took the V "
+                                 f"split (reconstruct batches by chip {rec})")
+        steps["rebuild"] = reb_s
+        log(phase, f"rebuild of {list(REBUILD_LOST)} of all {MESH_VOLUMES} "
+                   f"at once: {reb_s:.3f} s, sha-identical; {len(vsplits)} "
+                   f"batches by the V split (slabs {sorted(vsplits)}), "
+                   f"reconstruct batches by chip {rec}")
+
+        # 4. the other geometries: an lrc_10_2_2 volume, a pm_mbr stripe
+        t0 = time.perf_counter()
+        lgeo = Geometry(code="lrc_10_2_2")
+        lbase = os.path.join(vdir, "lrc")
+        make_volume(lbase, MESH_LRC_MB * MIB, seed + 10)
+        lcoder = mesh.ShardedCoder(10, 4, mesh=mesh2, geometry=lgeo.code)
+        ec_files.write_ec_files(lbase, lcoder, lgeo)
+        lhashes = shard_hashes(lbase, lgeo)
+        obase = os.path.join(vdir, "lrc-oracle")
+        os.symlink(os.path.abspath(lbase + ".dat"), obase + ".dat")
+        ec_files.write_ec_files(obase, new_coder(
+            10, 4, backend="cpu", geometry=lgeo.code), lgeo)
+        if lhashes != shard_hashes(obase, lgeo):
+            raise AssertionError(f"{phase}: lrc_10_2_2 shards differ from "
+                                 f"the cpu coder")
+        for i in (2, 11):
+            os.remove(lgeo.shard_file_name(lbase, i))
+        ec_files.rebuild_ec_files(lbase, lcoder, lgeo)
+        if shard_hashes(lbase, lgeo) != lhashes:
+            raise AssertionError(f"{phase}: lrc_10_2_2 rebuild differs")
+        pm = geometry.get("pm_mbr_6_3_5")
+        w = rng.integers(0, 256, (pm.message_symbols, MESH_WIDTH), np.uint8)
+        nodes = mesh._apply_sharded(pm.generator_matrix(),
+                                    ("pm_gen", pm.name), w, mesh2, "xor")
+        nodes = nodes.cpu().numpy().reshape(pm.n_nodes, pm.sub_symbols, -1)
+        if not np.array_equal(nodes, pm.encode_stripe(w)):
+            raise AssertionError(f"{phase}: pm_mbr_6_3_5 encode differs")
+        failed = 1
+        helpers = [i for i in range(pm.n_nodes) if i != failed][
+            : pm.d_helpers]
+        recv = np.stack([pm.helper_symbol(nodes[j], failed)
+                         for j in helpers])
+        repaired = mesh._apply_sharded(
+            gf256.gf_mat_inv(pm.psi[helpers]), ("pm_rep", pm.name, failed),
+            recv, mesh2, "xor").cpu().numpy()
+        if not np.array_equal(repaired, nodes[failed]):
+            raise AssertionError(f"{phase}: pm_mbr_6_3_5 repair differs")
+        _check_device(phase, here)
+        steps["geometries"] = _mesh_step(
+            phase, f"lrc_10_2_2 volume of {MESH_LRC_MB} MiB encoded and "
+                   f"shards 2, 11 rebuilt; pm_mbr_6_3_5 stripe of "
+                   f"{MESH_WIDTH} B encoded and node {failed} repaired from "
+                   f"{pm.d_helpers} helper symbols; all equal to the numpy "
+                   f"coder", t0)
+        counts = {k: spec["module"].KERNEL.launches
+                  for k, spec in KERNELS.items()}
+
+        # 5. the host coders, built by this machine's g++
+        t0 = time.perf_counter()
+        block = data[:, :MIB]
+        nat = new_coder(backend="native")
+        sched = geometry.encode_schedule(geometry.rs(10, 4))
+        want = cpu.encode_parity(block)
+        for what, got in (("RSCodecNative", nat.encode_parity(block)),
+                          ("the native XOR schedule",
+                           sched.execute(block, "native")),
+                          ("the numpy XOR schedule",
+                           sched.execute(block, "numpy"))):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{phase}: {what} differs from rs_cpu")
+        steps["host"] = _mesh_step(
+            phase, f"RSCodecNative (simd level {rs_native.simd_level()}) "
+                   f"and the XOR schedule (numpy and native) at [4,10] x 1 "
+                   f"MiB equal rs_cpu", t0)
+    finally:
+        shutil.rmtree(vdir)
+        if old_window is None:
+            os.environ.pop("SWFS_EC_DISPATCH_WINDOW_MS", None)
+        else:
+            os.environ["SWFS_EC_DISPATCH_WINDOW_MS"] = old_window
+    log(phase, f"launches: {counts}; gf_xor by R: "
+               f"{dict(sorted(rs_xor.KERNEL.launches_by.items()))}; two "
+               f"entries of one {card} share its SMs: no multi-GPU speed is "
+               f"measured here")
+    for name in ("gf_xor", "gf_bits"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{phase}: {name} was never launched")
+    return dict(launches=counts, steps=steps)
 
 
 # -- store --------------------------------------------------------------------
@@ -3073,6 +3396,10 @@ def main(argv=None) -> int:
         paths["gf_sel"] = pipeline_sched(args.sched_volume_mb,
                                          args.sched_volumes, seed=3,
                                          workdir=args.workdir, card=card)
+    if {"gf_xor", "gf_bits"} <= set(names):
+        got = mesh_phase(seed=8, workdir=args.workdir, card=card)
+        for name in ("gf_xor", "gf_bits"):
+            paths[name]["launches"] += got["launches"][name]
     if "gf_xor" in names:
         got = store_phase(seed=4, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]

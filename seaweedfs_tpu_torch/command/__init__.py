@@ -6,11 +6,11 @@ Subcommands: master, volume, filer, server (master + volume, and a
 filer with -filer, in one process), shell, upload, download, version.
 The volume servers' erasure coder is the CUDA card by default (`-coder
 cuda`): without one they fail at start, and nothing falls back to the
-CPU unless `-coder cpu` asks for it. S3 and the other gateways, the
-filer's sync, replicate, backup and remote tools, the master's Raft group
-(`-peers`), `benchmark` and the offline tools are not part of the port
-yet: their commands and flags fail at start, naming the ROADMAP.md item
-that will port them (`DEFERRED`).
+CPU unless `-coder cpu` (numpy) or `-coder native` (g++) asks for it.
+S3 and the other gateways, the filer's sync, replicate, backup and remote
+tools, the master's Raft group (`-peers`), `benchmark` and the offline
+tools are not part of the port yet: their commands and flags fail at
+start, naming the ROADMAP.md item that will port them (`DEFERRED`).
 """
 
 from __future__ import annotations
@@ -85,10 +85,12 @@ def main(argv=None) -> int:
     vp.add_argument("-mserver", default="localhost:9333")
     vp.add_argument("-dataCenter", default="")
     vp.add_argument("-rack", default="")
-    vp.add_argument("-coder", default="cuda", choices=["cuda", "cpu"],
+    vp.add_argument("-coder", default="cuda",
+                    choices=["cuda", "cpu", "native"],
                     help="erasure coder: cuda = the hand-written kernels on "
                          "the CUDA device (fails at start without one), "
-                         "cpu = the numpy table codec")
+                         "cpu = the numpy table codec, native = the "
+                         "g++-built host codec")
     vp.add_argument("-index", default="memory",
                     choices=["memory", "sqlite", "leveldb"],
                     help="needle-map index kind (leveldb = sqlite-backed "
@@ -130,7 +132,8 @@ def main(argv=None) -> int:
                     default=9333)
     sp.add_argument("-volume.port", dest="volume_port", type=int,
                     default=8080)
-    sp.add_argument("-coder", default="cuda", choices=["cuda", "cpu"],
+    sp.add_argument("-coder", default="cuda",
+                    choices=["cuda", "cpu", "native"],
                     help="the volume server's erasure coder, as for volume")
     sp.add_argument("-filer", action="store_true",
                     help="also run a filer")
@@ -238,7 +241,8 @@ def _run(opts) -> int:
         if opts.s3:
             raise SystemExit(f"server: -s3 is not part of the PyTorch port "
                              f"yet: {ROADMAP_S3}")
-        coder = None if opts.coder == "cuda" else new_coder(backend="cpu")
+        coder = (None if opts.coder == "cuda"
+                 else new_coder(backend=opts.coder))
         try:
             # the volume server first: without a card it fails before the
             # master binds anything
@@ -336,7 +340,8 @@ def _run(opts) -> int:
         if len(maxes) == 1:
             maxes = maxes * len(dirs)
         # cuda: the Store builds new_coder() itself, on the card
-        coder = None if opts.coder == "cuda" else new_coder(backend="cpu")
+        coder = (None if opts.coder == "cuda"
+                 else new_coder(backend=opts.coder))
         tier_conf = None
         if opts.tierConfig:
             import json as _json

@@ -1,7 +1,7 @@
 """Code geometries: named GF(256) layouts behind one registry.
 
-A copy of the parts of seaweedfs_tpu/models/geometry.py that the EC file
-lifecycle needs. The codec backends (ops/rs_cpu.py, ops/rs_torch.py) are
+A copy of seaweedfs_tpu/models/geometry.py. The codec backends
+(ops/rs_cpu.py, ops/rs_native.py, ops/rs_torch.py, parallel/mesh.py) are
 generic GF(256) matrix engines — the CODE is entirely the generator matrix
 fed to them:
 
@@ -13,14 +13,21 @@ fed to them:
     11), plus two global parity rows g1[i] = 2^i, g2[i] = 4^i (shards 12,
     13). A single lost shard inside a local group repairs from 5 survivors.
 
+  * ``pm_mbr_6_3_5`` — product-matrix regenerating code at the MBR point
+    (Rashmi-Shah-Kumar): repair of one node moves ONE node's worth of
+    bytes (d helpers send one derived symbol each). Non-systematic, so it
+    is registered ``volume_capable=False``: a stripe-level codec, not a
+    volume format; every coder constructor refuses it.
+
 Repair planning is one mechanism for every geometry: solve
 ``X @ G[survivors] = G[lost]`` with the survivor rows taken in sorted
 order, greedily keeping the first linearly-independent prefix, then prune
 the all-zero columns of X. For RS this reproduces klauspost's
 sorted-first-k decode bit for bit; for LRC the pruning IS the local repair.
 
-Not carried over (later slices): the compiled XOR-schedule cache and the
-product-matrix regenerating code (``pm_mbr``).
+Beside the matrices sits the cache of their compiled XOR schedules
+(``encode_schedule``, ``repair_schedule``; ops/rs_sched.py), which the
+host coders' dispatch lanes run.
 """
 
 from __future__ import annotations
@@ -28,14 +35,18 @@ from __future__ import annotations
 import functools
 import re
 import threading
+from collections import OrderedDict
 
 import numpy as np
 
 from ..ops import gf256
+from ..utils import locks
+from ..utils.stats import EC_SCHED_CACHE_OPS
 
 __all__ = [
     "CodeGeometry", "RepairPlan", "UnsolvableError", "register", "get",
-    "names", "rs", "lrc_10_2_2", "resolve", "as_geometry",
+    "names", "rs", "lrc_10_2_2", "pm_mbr", "ProductMatrixMBR", "resolve",
+    "as_geometry", "encode_schedule", "repair_schedule",
 ]
 
 
@@ -278,6 +289,87 @@ def _repair_matrix_cached(geom: CodeGeometry, present: tuple[int, ...],
     return out
 
 
+# -- compiled XOR-schedule cache ---------------------------------------------
+#
+# One compiled XorSchedule (ops/rs_sched.py) per (geometry, role,
+# survivors/want) key, LRU-bounded by SCHED_CACHE (the reference's
+# SWFS_EC_SCHED_CACHE default, a constant here).
+# Compile-once: the first thread to miss a key compiles OUTSIDE the lock
+# while later arrivals wait on the condition instead of duplicating the
+# (CSE-heavy) compile; rank 820 slots between the reconstruct-plan cache
+# (810) and the buffer pool (850) in the witness lock order, above
+# dispatch.mu (100) which holds it during lane selection.
+
+SCHED_CACHE = 256
+_sched_cv = locks.wcondition("geometry.sched_cache", rank=820)
+_sched_cache: OrderedDict[tuple, object] = OrderedDict()
+_sched_inflight: set[tuple] = set()
+
+
+def _sched_cache_clear() -> None:
+    """Test hook: drop every cached schedule (compiles are idempotent)."""
+    with _sched_cv:
+        _sched_cache.clear()
+
+
+def sched_cache_len() -> int:
+    with _sched_cv:
+        return len(_sched_cache)
+
+
+def _schedule_for(key: tuple, matrix_fn):
+    from ..ops import rs_sched
+
+    with _sched_cv:
+        while True:
+            got = _sched_cache.get(key)
+            if got is not None:
+                _sched_cache.move_to_end(key)
+                EC_SCHED_CACHE_OPS.inc(result="hit")
+                return got
+            if key not in _sched_inflight:
+                _sched_inflight.add(key)
+                break
+            EC_SCHED_CACHE_OPS.inc(result="wait")
+            _sched_cv.wait()
+    try:
+        sched = rs_sched.compile_matrix(matrix_fn())
+    except BaseException:
+        with _sched_cv:
+            _sched_inflight.discard(key)
+            _sched_cv.notify_all()
+        raise
+    with _sched_cv:
+        _sched_inflight.discard(key)
+        _sched_cache[key] = sched
+        _sched_cache.move_to_end(key)
+        EC_SCHED_CACHE_OPS.inc(result="compile")
+        cap = max(1, SCHED_CACHE)
+        while len(_sched_cache) > cap:
+            _sched_cache.popitem(last=False)
+            EC_SCHED_CACHE_OPS.inc(result="evict")
+        _sched_cv.notify_all()
+    return sched
+
+
+def encode_schedule(geom: CodeGeometry):
+    """Compiled XOR schedule of `geom`'s parity block (role=encode).
+    Raises TypeError for non-systematic geometries, like parity_matrix."""
+    return _schedule_for(("encode", geom.name), geom.parity_matrix)
+
+
+def repair_schedule(geom: CodeGeometry, present_ids, want):
+    """Compiled XOR schedule of the fused repair matrix solving `want`
+    from survivors stacked in `present_ids` order (role=reconstruct).
+    Byte-identical to the dense repair_matrix path — it IS that matrix,
+    lowered. Raises UnsolvableError exactly when repair_matrix does."""
+    present_ids = tuple(present_ids)
+    want = tuple(want)
+    return _schedule_for(
+        ("repair", geom.name, present_ids, want),
+        lambda: geom.repair_matrix(present_ids, want))
+
+
 # -- constructions -----------------------------------------------------------
 
 _RS_NAME = re.compile(r"^rs_(\d+)_(\d+)$")
@@ -319,6 +411,177 @@ def lrc_10_2_2() -> CodeGeometry:
         description="locally-repairable (2 groups of 5 + 1 local parity "
                     "each, 2 global parities) — single-shard repair in a "
                     "group reads 5 survivors")
+
+
+# -- product-matrix regenerating variant (MBR point) -------------------------
+
+
+class ProductMatrixMBR(CodeGeometry):
+    """Product-matrix regenerating code at the minimum-bandwidth point
+    (Rashmi-Shah-Kumar construction): n nodes each storing d sub-symbols
+    of a B = kd - k(k-1)/2 symbol stripe. Exact repair of one node moves
+    ONE sub-symbol from each of d helpers — exactly one node's worth of
+    bytes, vs k nodes' worth under RS.
+
+    Realized as a [n*d, B] GF(256) generator matrix (each node = d
+    consecutive rows), so the structured encode is pinned bit-identical
+    to a plain matrix multiply through the CPU oracle. Non-systematic —
+    registered volume_capable=False: a stripe-level codec for bench and
+    tests, not a .ecNN volume layout."""
+
+    def __init__(self, n: int, k: int, d: int):
+        if not (k <= d <= n - 1):
+            raise ValueError("need k <= d <= n-1")
+        b = k * d - k * (k - 1) // 2
+        self.n_nodes = n
+        self.k_nodes = k
+        self.d_helpers = d
+        self.message_symbols = b
+        self.sub_symbols = d
+        # psi_i = (1, a_i, a_i^2, ..): any d rows independent, any k rows
+        # of the first k columns independent (distinct evaluation points)
+        self.psi = np.array(
+            [[gf256.gf_exp(i, j) for j in range(d)] for i in range(n)],
+            np.uint8)
+        gen = np.zeros((n * d, b), np.uint8)
+        for sym in range(b):
+            w = np.zeros(b, np.uint8)
+            w[sym] = 1
+            gen[:, sym] = self._encode_message(w).reshape(-1)
+        super().__init__(
+            f"pm_mbr_{n}_{k}_{d}", b, n * d - b,
+            # CodeGeometry's systematic parity block does not apply to a
+            # non-systematic code; store a placeholder and override the
+            # matrix accessors below.
+            np.zeros((n * d - b, b), np.uint8),
+            volume_capable=False,
+            description=f"product-matrix MBR({n},{k},{d}) — repair moves "
+                        f"{d} sub-symbols (= one node) instead of "
+                        f"{k * d} (k nodes)")
+        self._pm_gen = gen
+        self._pm_gen.setflags(write=False)
+
+    # -- structure ----------------------------------------------------------
+
+    def parity_matrix(self) -> np.ndarray:
+        raise TypeError(
+            f"{self.name} is non-systematic: it has no [m, k] parity "
+            f"block — use generator_matrix()/encode_stripe()")
+
+    def encode_matrix(self) -> np.ndarray:
+        raise TypeError(
+            f"{self.name} is non-systematic: use generator_matrix()")
+
+    def _message_matrix(self, w: np.ndarray) -> np.ndarray:
+        """Symmetric d x d message matrix M = [[S, T], [T^T, 0]] filled
+        from the B message symbols (S symmetric k x k, T k x (d-k))."""
+        k, d = self.k_nodes, self.d_helpers
+        m = np.zeros((d, d), w.dtype) if w.ndim == 1 else np.zeros(
+            (d, d, w.shape[1]), w.dtype)
+        idx = 0
+        for i in range(k):
+            for j in range(i, k):
+                m[i, j] = m[j, i] = w[idx]
+                idx += 1
+        for i in range(k):
+            for j in range(k, d):
+                m[i, j] = m[j, i] = w[idx]
+                idx += 1
+        assert idx == self.message_symbols
+        return m
+
+    def _encode_message(self, w: np.ndarray) -> np.ndarray:
+        """[B] symbols -> [n, d] node sub-symbols: node i holds psi_i M."""
+        m = self._message_matrix(w)
+        return gf256.gf_matmul(self.psi, m)
+
+    # -- codec surface (stripe level) ---------------------------------------
+
+    def generator_matrix(self) -> np.ndarray:
+        """[n*d, B] — the plain-matrix realization the oracle test pins
+        the structured encode against."""
+        return self._pm_gen
+
+    def encode_stripe(self, w: np.ndarray) -> np.ndarray:
+        """w [B, W] message symbol rows -> [n, d, W] node sub-symbol rows
+        (structured product-matrix path)."""
+        w = np.atleast_2d(np.asarray(w, np.uint8))
+        assert w.shape[0] == self.message_symbols, w.shape
+        k, d, n = self.k_nodes, self.d_helpers, self.n_nodes
+        out = np.zeros((n, d, w.shape[1]), np.uint8)
+        m = self._message_matrix(w)  # [d, d, W]
+        table = gf256._mul_table()
+        for i in range(n):
+            for s in range(d):
+                acc = out[i, s]
+                for t in range(d):
+                    c = int(self.psi[i, t])
+                    if c:
+                        acc ^= table[c][m[t, s]]
+        return out
+
+    def helper_symbol(self, helper_rows: np.ndarray,
+                      failed: int) -> np.ndarray:
+        """What helper j sends to repair node `failed`: its d stored rows
+        combined by psi_failed — ONE sub-symbol [W] on the wire."""
+        table = gf256._mul_table()
+        out = np.zeros(helper_rows.shape[-1], np.uint8)
+        for t in range(self.d_helpers):
+            c = int(self.psi[failed, t])
+            if c:
+                out ^= table[c][helper_rows[t]]
+        return out
+
+    def repair_node(self, failed: int,
+                    received: dict[int, np.ndarray]) -> np.ndarray:
+        """Rebuild node `failed` from d helper symbols
+        {helper_id: [W]} -> [d, W]. Total bytes moved = d sub-symbols =
+        exactly one node's content."""
+        helpers = sorted(received)
+        if len(helpers) != self.d_helpers:
+            raise UnsolvableError(
+                f"need exactly {self.d_helpers} helpers, got "
+                f"{len(helpers)}")
+        psi_h = self.psi[helpers]  # [d, d] invertible (Vandermonde)
+        s = np.stack([np.asarray(received[j], np.uint8) for j in helpers])
+        # s = psi_h @ (M psi_f^T)  ->  M psi_f^T = inv(psi_h) @ s; the
+        # failed node's content is psi_f M = (M psi_f^T)^T by symmetry
+        return gf256.gf_matmul(gf256.gf_mat_inv(psi_h), s)
+
+    def decode_stripe(self, nodes: dict[int, np.ndarray]) -> np.ndarray:
+        """Recover the B message symbol rows from any >= k nodes' content
+        ({node_id: [d, W]}) via the generator realization: solve the
+        stacked linear system (rank B by the PM construction)."""
+        rows = []
+        eqs = []
+        for i in sorted(nodes):
+            arr = np.asarray(nodes[i], np.uint8)
+            for s in range(self.d_helpers):
+                eqs.append(self._pm_gen[i * self.d_helpers + s])
+                rows.append(arr[s])
+        eqs_m = np.stack(eqs)
+        used = _independent_prefix(eqs_m, tuple(range(len(eqs))),
+                                   self.message_symbols)
+        if len(used) < self.message_symbols:
+            raise UnsolvableError(
+                f"{self.name}: {len(nodes)} nodes span rank "
+                f"{len(used)} < {self.message_symbols}")
+        x = gf256.gf_mat_inv(eqs_m[list(used)])  # [B, B] by construction
+        data = np.stack([rows[i] for i in used])
+        table = gf256._mul_table()
+        out = np.zeros((self.message_symbols, data.shape[1]), np.uint8)
+        for i in range(self.message_symbols):
+            acc = out[i]
+            for j in range(x.shape[1]):
+                c = int(x[i, j])
+                if c:
+                    acc ^= table[c][data[j]]
+        return out
+
+
+@functools.lru_cache(maxsize=32)
+def pm_mbr(n: int = 6, k: int = 3, d: int = 5) -> ProductMatrixMBR:
+    return ProductMatrixMBR(n, k, d)
 
 
 # -- registry ----------------------------------------------------------------
@@ -401,3 +664,4 @@ def as_geometry(data_shards: int, parity_shards: int,
 # built-ins
 register(rs(10, 4))
 register(lrc_10_2_2())
+register(pm_mbr(6, 3, 5))

@@ -329,7 +329,8 @@ int gf_bits_launch(const void* words, const void* in, long long ld_in,
   if (R <= 0 || C <= 0 || B <= 0 || R > 256 || C > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  gfk::DeviceGuard guard;
+  cudaError_t e = guard.set(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   int sms = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

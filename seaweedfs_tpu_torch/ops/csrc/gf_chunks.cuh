@@ -226,4 +226,27 @@ __host__ __forceinline__ bool needs_halo(const void* in, long long ld_in,
          (rows_out > 1 && (ld_out & mask) != 0);
 }
 
+// Makes `device` the calling thread's current device for one launch and
+// gives the caller's back on scope exit, so a launch on another device of
+// a mesh never moves the thread's current device (nor PyTorch's view of
+// it). `set` returns the first error.
+class DeviceGuard {
+ public:
+  cudaError_t set(int device) {
+    cudaError_t e = cudaGetDevice(&prev_);
+    if (e != cudaSuccess) return e;
+    if (prev_ == device) return cudaSuccess;
+    e = cudaSetDevice(device);
+    if (e == cudaSuccess) restore_ = true;
+    return e;
+  }
+  ~DeviceGuard() {
+    if (restore_) cudaSetDevice(prev_);
+  }
+
+ private:
+  int prev_ = 0;
+  bool restore_ = false;
+};
+
 }  // namespace gfk

@@ -178,7 +178,8 @@ void gf_sel_matrix(uint8_t* out) {
 int gf_sel_launch(const void* in, long long ld_in, void* out, long long ld_out,
                   long long B, int device, void* stream) {
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaSetDevice(device);
+  gfk::DeviceGuard guard;
+  const cudaError_t e = guard.set(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool halo = gfk::needs_halo<kNW>(in, ld_in, kCols, out, ld_out, kRows);
   const long long blocks = gfk::blocks_for<kNW>(B, halo);

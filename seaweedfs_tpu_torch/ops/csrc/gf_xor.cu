@@ -207,7 +207,8 @@ int gf_xor_launch(const void* coef, const void* in, long long ld_in, void* out,
   if (R <= 0 || C <= 0 || B <= 0 || R > 256 || C > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  gfk::DeviceGuard guard;
+  cudaError_t e = guard.set(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   int limit = 0;
   e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -239,7 +240,8 @@ int gf_xor_launch(const void* coef, const void* in, long long ld_in, void* out,
 // An empty kernel of one block, launched the same way: the floor under
 // K1's time at small widths.
 int gf_xor_empty_launch(int device, void* stream) {
-  const cudaError_t e = cudaSetDevice(device);
+  gfk::DeviceGuard guard;
+  const cudaError_t e = guard.set(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   empty_kernel<<<1, gfk::kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());

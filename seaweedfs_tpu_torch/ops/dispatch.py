@@ -1,6 +1,6 @@
 """EC dispatch scheduler: share device launches across the EC plane.
 
-Counterpart of seaweedfs_tpu/ops/dispatch.py on one device. The encode
+Counterpart of seaweedfs_tpu/ops/dispatch.py. The encode
 and rebuild pipelines (storage/ec_files.py) and degraded reads
 (storage/ec_volume.py) all end in the same shape of work: a GF matmul
 over a [rows, B] slab. Parity and reconstruction are per-byte-column
@@ -37,22 +37,30 @@ event before they read a result, so ordering never depends on the
 flusher and the consumer sharing one stream. The flusher thread can
 optionally be NUMA-pinned (`SWFS_EC_DISPATCH_PIN`, utils/numa.py).
 
-Not carried over yet: the per-chip lanes of a multi-device coder (the
-reference's `_chip_list`, `encode_parity_stacked_on`/`encode_parity_on`
-and `reconstruct_stacked_vsharded` branches), which wait for the
-multi-GPU coder; the compiled XOR-schedule hooks for host coders
-(`rs_sched.maybe_encode` / `maybe_reconstruct`), which wait for
-ops/rs_sched.py; the `[V, k, B]` stack for a coder that prefers it
-(`_pack_vstack`) and the per-slab paths for a coder without stacked
-products, since every port coder takes column-packed slabs; and
-`ReconstructIntervalCache`, which waits for the volume server that reads
-through it. Every lane here is single-device; none of these would change
-the bytes.
+On a multi-device coder (parallel/mesh.ShardedCoder) the lanes split per
+chip, as in the reference: encode slabs round-robin over one lane per
+chip, each flushed as one product pinned there (`encode_parity_on`); a
+survivor set's lane is pinned to one chip (LRU), where its fused matrix
+stays cached (`reconstruct_stacked_on`); a big uniform reconstruct batch
+splits its slabs over every device (`reconstruct_stacked_vsharded`); a
+lane without a chip keeps the `[V, k, B]` stack (`_pack_vstack`) that the
+coder splits by slab. SWFS_EC_DISPATCH_VSHARD=0 turns the chip lanes off.
+A flush that read its arena buffer from several devices records its
+completion event on each of them. On a host coder a lane runs the
+compiled XOR schedule of its matrix when it is predicted cheaper
+(`rs_sched.maybe_encode` / `maybe_reconstruct`).
+
+Not carried over: the per-slab paths of the reference for a coder without
+stacked products or without the wide chip entry (`encode_parity_on`),
+since every port coder has both; and the arena's on/off switch
+(SWFS_EC_DISPATCH_ARENA), since the arena is always on. None of these
+would change the bytes.
 """
 
 from __future__ import annotations
 
 import atexit
+import itertools
 import os
 import threading
 import time
@@ -62,6 +70,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from . import rs_sched
 from ..utils import locks, numa, trace
 from ..utils.stats import (
     EC_DISPATCH_ARENA_INUSE,
@@ -83,13 +92,24 @@ MAX_SLABS = 32
 # submit restarts it): idle schedulers self-clean instead of leaking a
 # thread per coder across tests
 _IDLE_EXIT_S = 1.0
-# lanes of a single-device coder carry this chip label
+# lanes of no chip (a single-device coder's) carry this chip label
 _NO_CHIP = "-"
+# survivor-set -> chip assignments kept per scheduler (LRU): each set's
+# fused decode matrix stays cached on its chip (the reference's
+# SWFS_EC_DISPATCH_REC_SETS default, a constant here)
+REC_SETS = 128
 
 
 def enabled() -> bool:
     """SWFS_EC_DISPATCH gates the whole plane (default on)."""
     return os.environ.get("SWFS_EC_DISPATCH", "1").lower() not in (
+        "0", "false", "off")
+
+
+def vshard_enabled() -> bool:
+    """SWFS_EC_DISPATCH_VSHARD gates the per-chip lanes of multi-device
+    coders (default on; single-device coders ignore it)."""
+    return os.environ.get("SWFS_EC_DISPATCH_VSHARD", "1").lower() not in (
         "0", "false", "off")
 
 
@@ -104,34 +124,56 @@ def window_s() -> float:
 class FlushDone:
     """Completion handle of one flush: a CUDA event recorded on the
     launching thread's current stream right after the flush's last
-    kernel (None for a host coder, whose results exist on return).
+    kernel (None for a host coder, whose results exist on return), plus
+    one more on each other device the flush read its input from (a
+    multi-device coder's split copies the arena buffer to every device
+    it lists).
 
     `is_ready()` is the arena's proof that the flush consumed its input
-    buffer: once the event completed, every copy and kernel queued
-    before it on that stream has run. `wait()` is the consumer's side:
-    it blocks the host until then, so a result is read after it was
-    written whatever stream the reading thread uses."""
+    buffer: once every event completed, every copy and kernel queued
+    before them on those streams has run. `wait()` is the consumer's
+    side: it blocks the host until then, so a result is read after it
+    was written whatever stream the reading thread uses."""
 
-    __slots__ = ("event",)
+    __slots__ = ("event", "others")
 
-    def __init__(self, event: "torch.cuda.Event | None"):
+    def __init__(self, event: "torch.cuda.Event | None", others=()):
         self.event = event
+        self.others = tuple(others)
 
     @classmethod
-    def after(cls, out) -> "FlushDone":
-        """Record the event after the work that produced `out`."""
-        if not isinstance(out, torch.Tensor) or out.device.type != "cuda":
-            return cls(None)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(out.device))
-        return cls(event)
+    def after(cls, out, devices=()) -> "FlushDone":
+        """Record the events after the work that produced `out`: on its
+        device's current stream and on that of each other CUDA device in
+        `devices`."""
+        devs = []
+        if isinstance(out, torch.Tensor):
+            devs.append(out.device)
+        devs += [torch.device(d) for d in devices]
+        events = []
+        seen = set()
+        for d in devs:
+            if d.type != "cuda":
+                continue
+            if d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            if d in seen:
+                continue
+            seen.add(d)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(d))
+            events.append(event)
+        return cls(events[0] if events else None, events[1:])
 
     def is_ready(self) -> bool:
-        return self.event is None or self.event.query()
+        return ((self.event is None or self.event.query())
+                and all(e.query() for e in self.others))
 
     def wait(self) -> None:
         if self.event is not None:
             self.event.synchronize()
+        for e in self.others:
+            e.synchronize()
 
 
 # -- stack arena: the host memory plane --------------------------------------
@@ -467,21 +509,28 @@ def reconstruct_now(coder, present_ids, stacked,
 
 
 class EcDispatchScheduler:
-    """Window-batched stacked dispatch over one single-device coder.
+    """Window-batched stacked dispatch over one coder.
 
     Lanes (every key carries the coder's GEOMETRY id: stacked launches
     concatenate slabs along the byte axis and multiply ONE matrix, so
     slabs of different code geometries never share a lane):
-      ("enc", geom)                     encode slabs [k, B]
+      ("enc", geom)                     encode slabs [k, B] (one device)
+      ("enc", geom, chip)               per-chip encode lane of a
+                                        multi-device coder: slabs
+                                        round-robin across chips, each
+                                        lane flushes as ONE product
+                                        pinned to its chip
       ("rec", geom, present_ids, data_only, want)
                                         reconstruct slabs [P, B] sharing
                                         one survivor set / fused matrix
-                                        (want = minimal-read targets)
+                                        (want = minimal-read targets); on
+                                        a multi-device coder the lane is
+                                        pinned to the chip holding that
+                                        set's matrix (LRU)
 
-    On a multi-device coder the reference splits the encode lane per
-    chip and pins each survivor set's lane to one chip; those lanes wait
-    for the port's multi-GPU coder, so every lane here runs on the
-    coder's one device (chip label "-").
+    The per-chip lanes keep the slab axis spread over every device's own
+    stream, so the devices fill in parallel; SWFS_EC_DISPATCH_VSHARD=0
+    restores one funnel. Single-device coders are untouched either way.
     """
 
     def __init__(self, coder, window: float | None = None,
@@ -498,6 +547,12 @@ class EcDispatchScheduler:
         # _dispatch_mu on the flush path, never before it
         self._cv = locks.wcondition("dispatch.lane_cv", rank=200)
         self._lanes: "OrderedDict[tuple, list[_Slab]]" = OrderedDict()
+        # per-chip lane state; `_chips` resolves on the first submit
+        self._chips: list | None = None
+        self._enc_rr = itertools.count()
+        self._rec_chips: "OrderedDict[tuple, int]" = OrderedDict()
+        self._rec_rr = 0
+        self._rec_max = REC_SETS
         self._thread: threading.Thread | None = None
         # Serializes SUBMISSION into the coder (not completion: launches
         # stay asynchronous on the card, so batches still pipeline
@@ -528,6 +583,83 @@ class EcDispatchScheduler:
         EC_DISPATCH_ZEROFILL_ELIDED.inc(rows * total)
         return wide, buf
 
+    def _pack_vstack(self, slabs: "list[_Slab]"):
+        """Pack slabs into ONE [V, rows, bmax] view of an arena buffer
+        (the form a multi-device coder splits whole slabs of). Only
+        ragged tails (width < bmax) are zeroed; a uniform batch zeroes
+        nothing."""
+        v = len(slabs)
+        rows = slabs[0].data.shape[0]
+        bmax = max(s.width for s in slabs)
+        region = v * rows * bmax
+        buf = self._arena.get(region)
+        stack = buf.flat[:region].reshape(v, rows, bmax)
+        tails = 0
+        for i, s in enumerate(slabs):
+            stack[i, :, : s.width] = s.data
+            if s.width < bmax:
+                stack[i, :, s.width:] = 0
+                tails += rows * (bmax - s.width)
+        EC_DISPATCH_ZEROFILL_ELIDED.inc(region - tails)
+        return stack, buf
+
+    # -- per-chip lane plumbing --------------------------------------------
+
+    def _chip_list(self) -> list:
+        """The coder's placement devices when per-chip lanes apply, else
+        []. Resolved once; the env gate is re-read every call so a run can
+        flip the lanes without rebuilding schedulers."""
+        if not vshard_enabled():
+            return []
+        chips = self._chips
+        if chips is None:
+            chips = []
+            fn = getattr(self.coder, "placement_devices", None)
+            if fn is not None and hasattr(self.coder, "encode_parity_on"):
+                devs = fn()
+                if len(devs) > 1:
+                    chips = list(devs)
+            self._chips = chips
+        return chips
+
+    def _assign_rec_chip(self, key: tuple, n_chips: int) -> int:
+        """Stable survivor-set -> chip placement, LRU-evicted: every slab
+        sharing this fused decode matrix runs on the chip where the
+        matrix is cached (ops/rs_torch.op_on_device)."""
+        with self._cv:
+            got = self._rec_chips.get(key)
+            if got is None:
+                got = self._rec_rr % n_chips
+                self._rec_rr += 1
+                self._rec_chips[key] = got
+                while len(self._rec_chips) > self._rec_max:
+                    # evict the oldest set WITHOUT queued slabs: dropping
+                    # an in-flight lane's pinning mid-window would
+                    # dispatch it unpinned and desync the chip counters
+                    for old in self._rec_chips:
+                        if old not in self._lanes:
+                            del self._rec_chips[old]
+                            break
+                    else:
+                        break  # every set in flight; defer eviction
+            else:
+                self._rec_chips.move_to_end(key)
+            return got
+
+    def _lane_chip(self, key: tuple) -> int | None:
+        """Chip index a lane is pinned to (None = no chip lane)."""
+        if key[0] == "enc":
+            return key[2] if len(key) > 2 else None
+        with self._cv:
+            return self._rec_chips.get(key)
+
+    def _chip_device(self, key: tuple):
+        chips = self._chip_list()
+        idx = self._lane_chip(key)
+        if chips and idx is not None and idx < len(chips):
+            return chips[idx]
+        return None
+
     # -- submission --------------------------------------------------------
 
     def encode_parity(self, data: np.ndarray, copy: bool = True) -> EcFuture:
@@ -535,13 +667,20 @@ class EcDispatchScheduler:
 
         `copy=True` (default) snapshots the slab: the encode pipeline
         recycles its read buffers as soon as the data rows hit disk,
-        which can be before the stacked dispatch reads them."""
+        which can be before the stacked dispatch reads them.
+
+        On a multi-device coder, slabs round-robin over per-chip lanes:
+        one pipeline alone fans across every chip, and N pipelines load
+        the chips evenly."""
         data = np.asarray(data, dtype=np.uint8)
         if copy:
             data = data.copy()
-        # per-chip encode lanes ("enc", geom, chip) wait for the
-        # multi-GPU coder
-        return self._submit(("enc", self.geom_id), data)
+        chips = self._chip_list()
+        if chips:
+            key = ("enc", self.geom_id, next(self._enc_rr) % len(chips))
+        else:
+            key = ("enc", self.geom_id)
+        return self._submit(key, data, chip=self._lane_chip(key))
 
     def reconstruct_stacked(self, present_ids, stacked: np.ndarray,
                             data_only: bool = False,
@@ -549,19 +688,24 @@ class EcDispatchScheduler:
         """Submit survivors [P, B] (caller row order); the future resolves
         to (missing_ids, rows[len(missing), B]). Slabs sharing a survivor
         set (and minimal-read target set `want`) share one
-        column-concatenated `reconstruct_stacked` launch."""
+        column-concatenated `reconstruct_stacked` launch, pinned to the
+        set's chip on a multi-device coder."""
         stacked = np.asarray(stacked, dtype=np.uint8)
         if copy:
             stacked = stacked.copy()
         key = ("rec", self.geom_id, tuple(present_ids), bool(data_only),
                tuple(want) if want is not None else None)
-        return self._submit(key, stacked)
+        chips = self._chip_list()
+        chip = self._assign_rec_chip(key, len(chips)) if chips else None
+        return self._submit(key, stacked, chip=chip)
 
-    def _submit(self, key: tuple, data: np.ndarray) -> EcFuture:
+    def _submit(self, key: tuple, data: np.ndarray,
+                chip: int | None = None) -> EcFuture:
         fut = EcFuture(self, key)
         slab = _Slab(data, fut)
         kind = "encode" if key[0] == "enc" else "reconstruct"
-        EC_DISPATCH_SLABS.inc(lane=kind, chip=_NO_CHIP)
+        EC_DISPATCH_SLABS.inc(lane=kind,
+                              chip=_NO_CHIP if chip is None else str(chip))
         with self._cv:
             if self.closed:
                 raise RuntimeError("ec dispatch scheduler is closed")
@@ -642,39 +786,61 @@ class EcDispatchScheduler:
 
     def _dispatch(self, key: tuple, slabs: list[_Slab]) -> None:
         kind = "encode" if key[0] == "enc" else "reconstruct"
+        chip = self._lane_chip(key)
+        label = _NO_CHIP if chip is None else str(chip)
         now = time.perf_counter()
-        EC_DISPATCH_BATCHES.inc(lane=kind, chip=_NO_CHIP,
-                                reason=self._lane_reason())
+        device = self._chip_device(key)
+        EC_DISPATCH_BATCHES.inc(lane=kind, chip=label,
+                                reason=self._lane_reason(device))
         EC_DISPATCH_STACK_SLABS.observe(len(slabs), lane=kind)
         EC_DISPATCH_STACK_BYTES.observe(
             sum(s.data.nbytes for s in slabs), lane=kind)
         for s in slabs:
             EC_DISPATCH_WINDOW_WAIT.observe(now - s.t, lane=kind,
-                                            chip=_NO_CHIP)
+                                            chip=label)
             # trace attribution, readable off the future after result()
             s.fut.queue_wait_s = now - s.t
             s.fut.batch_slabs = len(slabs)
-            s.fut.chip = _NO_CHIP
+            s.fut.chip = label
         # caller holds _dispatch_mu: coder submission is single-threaded,
         # and in-flight dispatch time turns into batching for the next
-        # elevator
+        # elevator. A chip lane's launches run on that chip's stream, so
+        # the chips execute concurrently all the same.
         try:
             if key[0] == "enc":
-                self._dispatch_encode(slabs)
+                self._dispatch_encode(slabs, device)
             else:
-                self._dispatch_reconstruct(key, slabs)
+                self._dispatch_reconstruct(key, slabs, device)
         except BaseException as e:
             for s in slabs:
                 if not s.fut.done():
                     s.fut._set_error(e)
 
-    def _lane_reason(self) -> str:
+    def _lane_reason(self, device) -> str:
         """WHY this lane dispatched where it did: the `reason` label on
-        EC_DISPATCH_BATCHES. cpu_env / cpu_explicit = host coder (pinned
-        by SEAWEEDFS_TORCH_CODER vs constructed by the call site;
-        models/coder.py stamps which); otherwise single_device."""
-        return getattr(self.coder, "backend_reason", None) \
-            or "single_device"
+        EC_DISPATCH_BATCHES. chip_affine = pinned to a placement device;
+        cpu_env / cpu_explicit = host coder (pinned by
+        SEAWEEDFS_TORCH_CODER vs constructed by the call site;
+        models/coder.py stamps which); vshard_off = per-chip lanes gated
+        off by SWFS_EC_DISPATCH_VSHARD; otherwise single_device."""
+        if device is not None:
+            return "chip_affine"
+        reason = getattr(self.coder, "backend_reason", None)
+        if reason:
+            return reason
+        if not vshard_enabled():
+            return "vshard_off"
+        return "single_device"
+
+    def _host_encode(self, wide: np.ndarray):
+        """Encode of a column-compact [k, W] view on a lane without a
+        chip: a host coder's compiled XOR schedule (ops/rs_sched.py) when
+        the gate is on and it is predicted cheaper than the dense matmul,
+        else the coder's own product. Bytes identical either way."""
+        out = rs_sched.maybe_encode(self.coder, wide)
+        if out is not None:
+            return out
+        return self.coder.encode_parity(wide)
 
     @staticmethod
     def _stamp_wall(slabs: list[_Slab], t0: float) -> None:
@@ -685,17 +851,35 @@ class EcDispatchScheduler:
         for s in slabs:
             s.fut.dispatch_wall_s = wall
 
-    def _dispatch_encode(self, slabs: list[_Slab]) -> None:
-        # a host coder's compiled XOR schedule (rs_sched.maybe_encode)
-        # would take the product here first; it waits for ops/rs_sched.py
+    def _dispatch_encode(self, slabs: list[_Slab], device=None) -> None:
+        encode_on = (getattr(self.coder, "encode_parity_on", None)
+                     if device is not None else None)
         t0 = time.perf_counter()
         if len(slabs) == 1:
-            # lone slab: no stack copy
+            # lone slab: no stack copy on any lane
             s = slabs[0]
-            out0 = self.coder.encode_parity(s.data)
-            done = FlushDone.after(out0)
+            out0 = (encode_on(s.data, device) if encode_on is not None
+                    else self._host_encode(s.data))
+            done = FlushDone.after(out0, self._flush_devices(device))
             self._stamp_wall(slabs, t0)
             s.fut._set(out0, done)
+            return
+        if getattr(self.coder, "prefers_vstack", False) and device is None:
+            # multi-device coder, no chip lane: keep the [V, k, B] form so
+            # the coder can split WHOLE slabs across its devices; ragged
+            # tails ride zero columns, which encode to zero and are
+            # sliced away
+            stack, buf = self._pack_vstack(slabs)
+            try:
+                out = self.coder.encode_parity_stacked(stack)
+            except BaseException:
+                self._arena.drop(buf)
+                raise
+            done = FlushDone.after(out, self._flush_devices(device))
+            self._stamp_wall(slabs, t0)
+            for i, s in enumerate(slabs):
+                s.fut._set(out[i][:, : s.width], done)
+            self._arena.release(buf, done)
             return
         # wide (column-compact) packing: the V slabs lie side by side in
         # ONE [k, sum(widths)] arena view, one product, one launch; each
@@ -703,11 +887,12 @@ class EcDispatchScheduler:
         # slice keeps the whole output alive until its last reader drops)
         wide, buf = self._pack_wide(slabs)
         try:
-            out = self.coder.encode_parity(wide)
+            out = (encode_on(wide, device) if encode_on is not None
+                   else self._host_encode(wide))
         except BaseException:
             self._arena.drop(buf)
             raise
-        done = FlushDone.after(out)
+        done = FlushDone.after(out, self._flush_devices(device))
         self._stamp_wall(slabs, t0)
         off = 0
         for s in slabs:
@@ -715,21 +900,64 @@ class EcDispatchScheduler:
             off += s.width
         self._arena.release(buf, done)
 
-    def _dispatch_reconstruct(self, key: tuple, slabs: list[_Slab]) -> None:
+    def _flush_devices(self, device) -> list:
+        """The devices a flush's completion must cover besides its
+        output's: its chip alone, or every device a multi-device coder's
+        split read the input on."""
+        if device is not None:
+            return [device]
+        fn = getattr(self.coder, "placement_devices", None)
+        return fn() if fn is not None else []
+
+    def _dispatch_reconstruct(self, key: tuple, slabs: list[_Slab],
+                              device=None) -> None:
         _, _geom, present_ids, data_only, want = key
         t0 = time.perf_counter()
-        # a big uniform batch would shard its V axis over every chip
-        # (reconstruct_stacked_vsharded), and a host coder's compiled XOR
-        # schedule (rs_sched.maybe_reconstruct) would take the product
-        # first; both wait (multi-GPU coder, ops/rs_sched.py)
+        chips = self._chip_list()
+        vsharded = getattr(self.coder, "reconstruct_stacked_vsharded", None)
+        if (vsharded is not None and chips and len(slabs) >= len(chips)
+                and len({s.width for s in slabs}) == 1):
+            # a BIG uniform batch (a rebuild pipeline's demand-flushed
+            # backlog) outgrows its one assigned chip: split its V axis
+            # over every device instead (small serving micro-batches keep
+            # the survivor-set chip below). Uniform widths: the pack
+            # zeroes nothing.
+            vstack, buf = self._pack_vstack(slabs)
+            try:
+                missing, rows = vsharded(present_ids, vstack,
+                                         data_only=data_only, want=want)
+            except BaseException:
+                self._arena.drop(buf)
+                raise
+            done = FlushDone.after(rows, self._flush_devices(None))
+            self._stamp_wall(slabs, t0)
+            for i, s in enumerate(slabs):
+                s.fut._set((missing, rows[i]), done)
+            self._arena.release(buf, done)
+            return
+        recon_on = (getattr(self.coder, "reconstruct_stacked_on", None)
+                    if device is not None else None)
 
         def recon(stk):
+            if recon_on is not None:
+                # the survivor set's fused matrix is cached on this
+                # lane's chip; its slabs run there
+                return recon_on(present_ids, stk, data_only=data_only,
+                                device=device, want=want)
+            # host lane: the compiled XOR schedule of the repair matrix
+            # when it beats the dense solve (ops/rs_sched.py); same
+            # survivor choice, same rows
+            got = rs_sched.maybe_reconstruct(
+                self.coder, present_ids, stk, data_only=data_only,
+                want=want)
+            if got is not None:
+                return got
             return self.coder.reconstruct_stacked(
                 present_ids, stk, data_only=data_only, want=want)
 
         if len(slabs) == 1:
             out0 = recon(slabs[0].data)
-            done = FlushDone.after(out0[1])
+            done = FlushDone.after(out0[1], self._flush_devices(device))
             self._stamp_wall(slabs, t0)
             slabs[0].fut._set(out0, done)
             return
@@ -740,7 +968,7 @@ class EcDispatchScheduler:
         except BaseException:
             self._arena.drop(buf)
             raise
-        done = FlushDone.after(rows)
+        done = FlushDone.after(rows, self._flush_devices(device))
         self._stamp_wall(slabs, t0)
         off = 0
         for s in slabs:
@@ -759,13 +987,20 @@ class EcDispatchScheduler:
         return self._arena.stats()
 
     def chip_depths(self) -> dict[str, int]:
-        """Queued slabs per chip lane — the per-chip depth surfaced in
-        the volume server's /status. Every lane of this scheduler runs on
-        the coder's one device, so the one key is "-"."""
+        """Queued slabs per chip lane ("-" = lanes of no chip): the
+        per-chip depth surfaced in the volume server's /status."""
         with self._cv:
-            if not self._lanes:
-                return {}
-            return {_NO_CHIP: sum(len(lane) for lane in self._lanes.values())}
+            out: dict[str, int] = {}
+            for key, lane in self._lanes.items():
+                if key[0] == "enc" and len(key) > 2:
+                    c = str(key[2])
+                elif key[0] == "rec":
+                    idx = self._rec_chips.get(key)
+                    c = _NO_CHIP if idx is None else str(idx)
+                else:
+                    c = _NO_CHIP
+                out[c] = out.get(c, 0) + len(lane)
+            return out
 
     def close(self) -> None:
         """Drain pending lanes, then stop + join the flusher thread.

@@ -1,6 +1,7 @@
 // CRC-32C (Castagnoli), slice-by-8: the needle checksum's host kernel
 // (storage/crc.py). The reference's ops/native/rs.cpp holds the same
-// function beside its GF(2^8) kernels; only the CRC is here.
+// function beside its GF(2^8) kernels, which are rs.cpp here; the two
+// sources build into one library (ops/rs_native.py).
 //
 // Exported C ABI (used from Python via ctypes, see ops/rs_native.py):
 //   swfs_crc32c(data, n, seed)   // extend `seed` over data[0:n]

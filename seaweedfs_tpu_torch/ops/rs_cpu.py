@@ -3,7 +3,8 @@
 The port's ``cpu`` backend and its independent oracle: the same encode
 matrix as klauspost/reedsolomon (gf256.build_encode_matrix), applied with
 a 256x256 multiplication table instead of either kernel formulation. A
-copy of seaweedfs_tpu/ops/rs_cpu.py without the multi-chip mirror.
+copy of seaweedfs_tpu/ops/rs_cpu.py, with its mirror of the multi-GPU
+coder's V-axis split (``encode_parity_stacked_vsharded``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,29 @@ class RSCodecCPU:
         wide = stack.transpose(1, 0, 2).reshape(k, v * b)
         parity = self._matmul(self._gp, wide)
         return parity.reshape(self.parity_shards, v, b).transpose(1, 0, 2)
+
+    def encode_parity_stacked_vsharded(self, stack: np.ndarray,
+                                       parts: int) -> np.ndarray:
+        """CPU mirror of the multi-GPU coder's V-axis split
+        (parallel/mesh.ShardedCoder over `parts` devices): zero-pad V to a
+        multiple of `parts`, encode each part's slabs as its own stacked
+        call, slice the padding away. Zero slabs encode to zero parity and
+        columns are independent, so the result equals one
+        encode_parity_stacked over the whole stack."""
+        stack = np.asarray(stack, dtype=np.uint8)
+        if stack.ndim != 3 or parts <= 0:
+            raise ValueError(f"expected a [V, k, B] stack and parts > 0, got "
+                             f"shape {stack.shape} and {parts}")
+        v = stack.shape[0]
+        pad_v = -(-v // parts) * parts
+        if pad_v != v:
+            stack = np.concatenate(
+                [stack, np.zeros((pad_v - v,) + stack.shape[1:], np.uint8)])
+        per = pad_v // parts
+        out = np.concatenate(
+            [self.encode_parity_stacked(stack[i * per:(i + 1) * per])
+             for i in range(parts)])
+        return out[:v]
 
     def encode(self, shards: np.ndarray) -> np.ndarray:
         shards = np.asarray(shards, dtype=np.uint8).copy()

@@ -2,8 +2,8 @@
 
 Counterpart of seaweedfs_tpu/ops/rs_jax.py ``RSCodecJax``: the same call
 surface (encode_parity, encode_parity_stacked, encode, reconstruct,
-reconstruct_data, reconstruct_stacked with want=, verify, parity_probe),
-the same matrices, the same bytes. Every call is one GF(2^8) matrix
+reconstruct_data, reconstruct_stacked with want=, verify, parity_probe
+and its alias parity_checksum), the same matrices, the same bytes. Every call is one GF(2^8) matrix
 product over byte columns, ``out[R, B] = M[R, C] (x) data[C, B]``:
 
   * encode applies the [m, k] parity generator;
@@ -19,6 +19,10 @@ matrices, and the fused decode matrices go to ``xor``). On a CUDA
 device the chosen kernel launches or the call raises; on the CPU its
 plain PyTorch version runs. Results are uint8 tensors on the codec's
 device; callers that need host bytes copy them (``.cpu().numpy()``).
+``encode_parity``, ``encode_parity_stacked`` and ``reconstruct_stacked``
+take ``device=``: the call then runs on that device instead, with the
+operands cached there (the multi-GPU coder's per-chip lanes,
+parallel/mesh.py).
 
 Construction touches no CUDA state: the device is a name until the first
 call moves data to it.
@@ -125,14 +129,16 @@ class RSCodecTorch:
 
     # -- inputs ------------------------------------------------------------
 
-    def _rows(self, x) -> torch.Tensor:
-        """uint8 tensor on the codec's device with unit stride along bytes."""
+    def _rows(self, x, device=None) -> torch.Tensor:
+        """uint8 tensor on `device` (default: the codec's) with unit stride
+        along bytes."""
         if not isinstance(x, torch.Tensor):
             arr = np.asarray(x, dtype=np.uint8)
             if not arr.flags.writeable:  # torch wants writable host memory
                 arr = arr.copy()
             x = torch.from_numpy(arr)
-        x = x.to(device=self.device, dtype=torch.uint8)
+        x = x.to(device=self.device if device is None else device,
+                 dtype=torch.uint8)
         if x.dim() >= 1 and x.shape[-1] > 1 and x.stride(-1) != 1:
             x = x.contiguous()
         return x
@@ -145,9 +151,10 @@ class RSCodecTorch:
 
     # -- Encode ------------------------------------------------------------
 
-    def encode_parity(self, data) -> torch.Tensor:
-        """data [k, B] uint8 -> parity [m, B] uint8 on the codec's device."""
-        data = self._rows(data)
+    def encode_parity(self, data, device=None) -> torch.Tensor:
+        """data [k, B] uint8 -> parity [m, B] uint8 on the codec's device,
+        or on `device` when given (a per-chip lane's pinned call)."""
+        data = self._rows(data, device)
         if data.dim() != 2 or data.shape[0] != self.data_shards:
             raise ValueError(f"expected [{self.data_shards}, B] data, got "
                              f"{tuple(data.shape)}")
@@ -159,18 +166,18 @@ class RSCodecTorch:
         return dispatch_matmul(
             gp, data, key=("parity", self.data_shards, self.parity_shards))
 
-    def encode_parity_stacked(self, stack) -> torch.Tensor:
+    def encode_parity_stacked(self, stack, device=None) -> torch.Tensor:
         """stack [V, k, B] -> parity [V, m, B] in ONE product: the V slabs
         are laid side by side along the column axis ([k, V*B]); columns
         are independent, so each slab's bytes equal its own
-        encode_parity call."""
-        stack = self._rows(stack)
+        encode_parity call. `device` pins the product to that device."""
+        stack = self._rows(stack, device)
         if stack.dim() != 3 or stack.shape[1] != self.data_shards:
             raise ValueError(f"expected [V, {self.data_shards}, B] stack, got "
                              f"{tuple(stack.shape)}")
         v, k, b = stack.shape
         wide = stack.transpose(0, 1).reshape(k, v * b)
-        parity = self.encode_parity(wide)
+        parity = self.encode_parity(wide, device=stack.device)
         return parity.reshape(self.parity_shards, v, b).transpose(0, 1) \
             .contiguous()
 
@@ -217,7 +224,7 @@ class RSCodecTorch:
         return {i: out[j] for j, i in enumerate(missing)}
 
     def reconstruct_stacked(
-        self, present_ids, stacked, data_only: bool = False,
+        self, present_ids, stacked, data_only: bool = False, device=None,
         want: tuple[int, ...] | None = None,
     ) -> tuple[tuple[int, ...], torch.Tensor]:
         """Reconstruct from survivors already stacked [P, B] in caller
@@ -227,15 +234,17 @@ class RSCodecTorch:
         row order, with zero columns for surplus survivors, so a
         pre-stacked buffer needs no gather. `want` restricts the solve to
         those shard ids — the minimal-read form: the survivor set may be
-        smaller than k (an LRC local group) as long as it spans them."""
+        smaller than k (an LRC local group) as long as it spans them.
+        `device` pins the product to that device, where the survivor
+        set's fused matrix stays cached."""
         limit = self.data_shards if data_only else self.total_shards
         present_ids = tuple(present_ids)
-        stacked = self._rows(stacked)
+        stacked = self._rows(stacked, device)
         if stacked.dim() != 2 or stacked.shape[0] != len(present_ids):
             raise ValueError(f"{len(present_ids)} survivor ids for stacked "
                              f"shape {tuple(stacked.shape)}")
         empty = torch.zeros((0, stacked.shape[1]), dtype=torch.uint8,
-                            device=self.device)
+                            device=stacked.device)
         if want is not None or not self.geometry.is_rs:
             targets = gfmat.geom_targets_for(self.geometry, present_ids,
                                              data_only, want)
@@ -267,6 +276,9 @@ class RSCodecTorch:
                              f"{tuple(shards.shape)}")
         parity = self.encode_parity(shards[: self.data_shards])
         return (parity ^ shards[self.data_shards:]).to(torch.int32).max()
+
+    # the reference's other name for the probe (rs_jax.py)
+    parity_checksum = parity_probe
 
     # ----------------------------------------------------------------------
 

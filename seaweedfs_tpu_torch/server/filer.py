@@ -122,8 +122,13 @@ class FilerServer:
 
         # the reference publishes every event to the queue that
         # notification.toml enables (filer.go LoadConfiguration
-        # ("notification")); the port has no queue to publish to
-        queue = enabled_notification_queue(load_config("notification"))
+        # ("notification")); the port has no queue to publish to. A file
+        # that does not parse is ignored with a warning, as there.
+        try:
+            queue = enabled_notification_queue(load_config("notification"))
+        except (ValueError, OSError) as e:
+            glog.warning(f"notification config ignored: {e}")
+            queue = ""
         if queue:
             raise NotImplementedError(_not_ported(
                 f"notification queue {queue!r} (notification.toml)",
@@ -133,8 +138,15 @@ class FilerServer:
         # only store-selection mechanism; the -store flag remains as the
         # default when no section is enabled). A section naming a store
         # the port does not carry fails in get_store, never falls back.
+        # A filer.toml that does not parse is ignored with a warning and
+        # the -store default serves, as in the reference.
         store_kwargs: dict = {}
-        for kind, section in load_config("filer").items():
+        try:
+            sections = load_config("filer")
+        except (ValueError, OSError) as e:
+            glog.warning(f"filer config ignored: {e}")
+            sections = {}
+        for kind, section in sections.items():
             if isinstance(section, dict) and section.get("enabled"):
                 store = kind
                 store_kwargs = {k: v for k, v in section.items()
@@ -1461,6 +1473,9 @@ def _make_http_handler(srv: FilerServer):
                         "remaining": srv.fid_pool.remaining(),
                         "batch": srv.fid_pool.batch,
                     },
+                    # the reference's C++ hot plane's stats; the port
+                    # carries no hot plane, so the key is always null
+                    "NativeHotPlane": None,
                     "Trace": trace.STORE.stats(),
                     # QoS plane: tenant buckets + rejections
                     "Qos": {

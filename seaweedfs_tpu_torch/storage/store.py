@@ -453,17 +453,22 @@ class Store:
 
 def _coder_like(coder, data_shards: int, parity_shards: int, geometry):
     """A coder for `geometry` on `coder`'s own backend and device: the
-    torch codec on the same device, the host codec with the same backend
-    reason. Any other coder goes through the registry's default, as in
-    the reference."""
+    torch codec on the same device, the mesh coder over the same devices
+    with the same kernel, the host codec (numpy or native) with the same
+    backend reason. Any other coder goes through the registry's default,
+    as in the reference."""
     from ..ops.rs_cpu import RSCodecCPU
     from ..ops.rs_torch import RSCodecTorch
+    from ..parallel.mesh import ShardedCoder
 
     if isinstance(coder, RSCodecTorch):
         return RSCodecTorch(data_shards, parity_shards, geometry=geometry,
                             device=coder.device)
+    if isinstance(coder, ShardedCoder):
+        return ShardedCoder(data_shards, parity_shards, mesh=coder.mesh,
+                            kernel=coder.kernel, geometry=geometry)
     if isinstance(coder, RSCodecCPU):
-        got = RSCodecCPU(data_shards, parity_shards, geometry=geometry)
+        got = type(coder)(data_shards, parity_shards, geometry=geometry)
         got.backend_reason = getattr(coder, "backend_reason", "cpu_explicit")
         return got
     from ..models.coder import new_coder

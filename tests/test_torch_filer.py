@@ -1062,6 +1062,51 @@ def test_a_notification_queue_refuses(tmp_path, monkeypatch):
     assert "ROADMAP.md A2d (notification queues)" in out.getvalue()
 
 
+@pytest.mark.parametrize("name,text", [("filer", "[sqlite\n"),
+                                        ("notification", "[notification\n")])
+def test_a_config_file_that_does_not_parse_is_ignored(name, text, tmp_path,
+                                                      monkeypatch):
+    """A filer.toml or notification.toml that is no TOML: both packages'
+    filers warn and start on the -store default (sqlite in store_dir)."""
+    (tmp_path / f"{name}.toml").write_text(text)
+    monkeypatch.chdir(tmp_path)
+    for pkg, mod in (("ref", ref_filer_server), ("port", filer_server)):
+        store_dir = tmp_path / pkg
+        fs = mod.FilerServer(ip="127.0.0.1", port=FILER_PORT,
+                             master="127.0.0.1:1", store_dir=str(store_dir))
+        assert os.path.exists(store_dir / "filer.db"), pkg
+        fs.filer.create_entry(port_entry.Entry(
+            full_path="/a", attr=port_entry.Attr(mtime=1, crtime=1))
+            if pkg == "port" else ref_entry.Entry(
+                full_path="/a", attr=ref_entry.Attr(mtime=1, crtime=1)))
+        assert fs.filer.find_entry("/a") is not None, pkg
+
+
+def test_the_status_keys_equal_the_references():
+    """/status of a started filer carries the reference's keys, the
+    NativeHotPlane key (null without a hot plane) among them."""
+    keys = {}
+    for pkg, mod in (("ref", ref_filer_server), ("port", filer_server)):
+        fs = mod.FilerServer(ip="127.0.0.1", port=FILER_PORT,
+                             master="127.0.0.1:1", store="memory")
+        fs.start()
+        http = requests.Session()
+        http.trust_env = False
+        try:
+            r = http.get(f"http://127.0.0.1:{FILER_PORT}/status", timeout=30)
+            assert r.status_code == 200
+            keys[pkg] = set(r.json())
+            assert r.json()["NativeHotPlane"] is None
+        finally:
+            http.close()
+            fs.stop()
+            fs._http_server.server_close()
+            fs._grpc_server.stop(None).wait(10)
+            rpc.reset_channels()
+            ref_rpc.reset_channels()
+    assert keys["port"] == keys["ref"]
+
+
 def test_the_native_hot_plane_refuses():
     with pytest.raises(NotImplementedError) as e:
         filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,

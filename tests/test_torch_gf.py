@@ -151,12 +151,14 @@ def test_repair_plans_equal(name):
 
 
 def test_registry_and_resolution():
-    assert geometry.names() == ["lrc_10_2_2", "rs_10_4"]
+    assert geometry.names() == ["lrc_10_2_2", "pm_mbr_6_3_5", "rs_10_4"]
     assert geometry.get("rs_6_3") == geometry.rs(6, 3)
     assert geometry.resolve(10, 4) is geometry.rs(10, 4)
     assert geometry.as_geometry(10, 4, "lrc_10_2_2") is geometry.lrc_10_2_2()
-    with pytest.raises(ValueError):
-        geometry.get("pm_mbr_6_3_5")  # not carried over
+    # the product-matrix code is registered, but no coder takes it
+    assert geometry.get("pm_mbr_6_3_5") is geometry.pm_mbr(6, 3, 5)
+    with pytest.raises(ValueError, match="volume_capable"):
+        geometry.as_geometry(12, 18, "pm_mbr_6_3_5")
     with pytest.raises(ValueError):
         geometry.resolve(6, 3, "lrc_10_2_2")
     with pytest.raises(ValueError):

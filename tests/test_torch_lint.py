@@ -72,3 +72,41 @@ def test_no_jax_and_nothing_of_the_jax_package(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "seaweedfs_tpu"), \
             f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+def _device_count_calls(path: str) -> list[int]:
+    """Lines of `torch.cuda.device_count()` calls (or of an import of the
+    name from torch.cuda) in `path`."""
+    tree = ast.parse(open(path).read(), filename=path)
+    lines = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "device_count"
+                and isinstance(node.func.value, ast.Attribute)
+                and node.func.value.attr == "cuda"):
+            lines.append(node.lineno)
+        elif (isinstance(node, ast.ImportFrom) and node.module == "torch.cuda"
+              and any(a.name == "device_count" for a in node.names)):
+            lines.append(node.lineno)
+    return lines
+
+
+MESH = os.path.join(REPO, "seaweedfs_tpu_torch", "parallel", "mesh.py")
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if p != MESH],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_devices_are_enumerated_only_in_the_mesh_module(path):
+    """The port's SWFS001: parallel/mesh.py (local_devices, device_count)
+    is the one place that counts CUDA devices."""
+    assert _device_count_calls(path) == [], \
+        f"{os.path.relpath(path, REPO)} counts CUDA devices itself"
+
+
+def test_the_device_rule_sees_the_mesh_module(tmp_path):
+    assert _device_count_calls(MESH)
+    bad = tmp_path / "coder_copy.py"
+    bad.write_text("import torch\n\nn = torch.cuda.device_count()\n"
+                   "from torch.cuda import device_count\n")
+    assert sorted(_device_count_calls(str(bad))) == [3, 4]
