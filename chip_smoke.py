@@ -162,7 +162,7 @@ and prints no result without them. Phases, each printing its own line:
                      default -maxMB 4, its own -dir, its chunk cache off
                      so that every GET reaches the volume servers).
                      8 clients PUT about 1 GiB of seeded files through its
-                     HTTP API: 8,000 of 1-64 KiB (1,000 in one directory,
+                     HTTP API: 5,000 of 1-64 KiB (1,000 in one directory,
                      the rest in 64 nested ones) and 24 of 8-64 MiB (2-16
                      chunks each); every file GET byte-exact with its md5
                      ETag, range GETs across a chunk boundary, the
@@ -181,7 +181,30 @@ and prints no result without them. Phases, each printing its own line:
                      sample listed and read back. SIGTERM to every
                      process: exit 0, no dirty marker. Write GB/s and
                      files/s, live and degraded GET ms, the encode's
-                     shell wall, the restart seconds, K1 by R
+                     shell wall, the restart seconds, K1 by R.
+                     The S3 gateway in the same fleet: `python3 -m
+                     seaweedfs_tpu_torch s3 -filer <the filer>` started
+                     with it. `shell -filer` s3.configure (an identity
+                     with Read,Write,List,Tagging,Admin) and
+                     s3.bucket.create, the identity pushed to the gateway
+                     through SeaweedS3.Configure; an unsigned PUT refused
+                     403. Every request below SigV4-signed (the port's
+                     sigv4_client): 8 clients PUT 2,000 seeded objects of
+                     1-64 KiB over 16 prefixes and 4 of 24-48 MiB in 8 MiB
+                     multipart parts (about 0.2 GiB, into the filer's
+                     collection, so the encode above covers them); a
+                     paged ListObjectsV2 with a delimiter lists every key;
+                     a CopyObject and an UploadPartCopy each equal their
+                     source; `benchmark -n 2000 -size 4096 -c 8
+                     -collection bench` with 0 failed. After the encode
+                     and the SIGKILL, every object GET through the
+                     gateway byte-exact with its ETag (the md5, or the
+                     filer's chunk ETag of a multipart object), those
+                     with a chunk on a lost shard timed apart, one Range
+                     GET across a part boundary, K1 at R = 4 in those
+                     reads; the `s3` process exits 0 on SIGTERM without
+                     jax in sys.modules. PUT GB/s and objects/s, GET ms,
+                     K1 by R, the benchmark's req/s
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
 pipeline phases (a short loop for one kernel; K1's are pipeline, store,
@@ -274,6 +297,10 @@ DEGRADED_WIDTH = 24_584
 # every row outside them (lost 0, 5 and 13, and unread 12)
 GET_WIDTH = dispatch.DEFAULT_CACHE_BLOCK
 GET_UNREAD = (0, 5, 12, 13)
+# the mesh phase's column-split width: 1 MiB and a ragged tail, no
+# multiple of 8 * 2; also the width of its pm_mbr_6_3_5 stripe
+MESH_WIDTH = MIB + 4093
+PM_FAILED = 1  # the pm_mbr_6_3_5 node the mesh phase repairs
 # (kernel, shape, matrix, B): the shapes the main path launches, timed
 TIMED_SHAPES = (
     ("gf_xor", "encode [4,10]", "encode", MIB),
@@ -282,6 +309,8 @@ TIMED_SHAPES = (
     ("gf_xor", "degraded GET [4,10]", "degraded GET", GET_WIDTH),
     ("gf_xor", "degraded read [2,10]", "degraded store", DEGRADED_WIDTH),
     ("gf_xor", "RS(6,3) encode [3,6]", "encode 6+3", MIB),
+    ("gf_xor", "pm_mbr encode [30,12]", "pm_mbr encode", MESH_WIDTH),
+    ("gf_xor", "pm_mbr repair [5,5]", "pm_mbr repair", MESH_WIDTH),
     ("gf_bits", "encode [4,10]", "encode", MIB),
     ("gf_bits", "rebuild [3,10]", "decode", MIB),
     ("gf_bits", "stacked flush [4,10]", "encode", STACKED_WIDTH),
@@ -411,15 +440,21 @@ def _matrices() -> dict[str, np.ndarray]:
     ([1, 10], shard DEGRADED_SHARD lost), of the server's degraded GET
     ([4, 10], the rows GET_UNREAD), of the Store's degraded reads with
     REBUILD_LOST gone (an interval spanning both lost data shards: [2,
-    10]), and the RS(6,3) encode of the cluster's config #5 ([3, 6])."""
+    10]), the RS(6,3) encode of the cluster's config #5 ([3, 6]), and
+    the mesh phase's pm_mbr_6_3_5 generator ([30, 12]) and repair of
+    node PM_FAILED from its first d helpers ([5, 5])."""
     def fused(lost, gone=None):
         present = tuple(i for i in range(14) if i not in (gone or lost))
         return gfmat.fused_reconstruct_matrix(10, 4, present, lost)[0]
+    pm = geometry.get("pm_mbr_6_3_5")
+    helpers = [i for i in range(pm.n_nodes) if i != PM_FAILED][:pm.d_helpers]
     return {"encode": gf256.parity_matrix(10, 4), "decode": fused(REBUILD_LOST),
             "degraded": fused((DEGRADED_SHARD,)),
             "degraded GET": fused(GET_UNREAD),
             "degraded store": fused(REBUILD_LOST[:2], REBUILD_LOST),
-            "encode 6+3": gf256.parity_matrix(6, 3)}
+            "encode 6+3": gf256.parity_matrix(6, 3),
+            "pm_mbr encode": pm.generator_matrix(),
+            "pm_mbr repair": gf256.gf_mat_inv(pm.psi[helpers])}
 
 
 def _check_equal(name: str, what: str, op, data) -> int:
@@ -1069,8 +1104,6 @@ def pipeline_sched(volume_mb: int, n_volumes: int, seed: int, workdir: str,
 MESH_VOLUMES = 4
 MESH_VOLUME_MB = 64
 MESH_LRC_MB = 16
-# the column split's width: 1 MiB and a ragged tail, no multiple of 8 * 2
-MESH_WIDTH = MIB + 4093
 MESH_REBUILD_BATCH = MIB  # every rebuild slab 1 MiB wide: one uniform lane
 MESH_WINDOW_MS = "20"  # lets the four rebuilds' slabs meet in one flush
 MESH_FLIP = (7, 12345, 0x5A)  # (shard, byte, mask) of the probe's flip
@@ -1309,7 +1342,7 @@ def mesh_phase(seed: int, workdir: str, card: str,
         nodes = nodes.cpu().numpy().reshape(pm.n_nodes, pm.sub_symbols, -1)
         if not np.array_equal(nodes, pm.encode_stripe(w)):
             raise AssertionError(f"{phase}: pm_mbr_6_3_5 encode differs")
-        failed = 1
+        failed = PM_FAILED
         helpers = [i for i in range(pm.n_nodes) if i != failed][
             : pm.d_helpers]
         recv = np.stack([pm.helper_symbol(nodes[j], failed)
@@ -1975,10 +2008,6 @@ CLUSTER_RACKS = ("r0", "r0", "r1", "r1")
 CLUSTER_DELETED = 0.10  # the share of needles deleted before the vacuum
 CLUSTER_CALL_S = 1200  # the longest a shell command may take
 SMALL_GEO = Geometry(data_shards=6, parity_shards=3)
-# a volume server caches the master's EC shard locations this long; a
-# scrub that starts sooner after a rebuild plans from the old map (the
-# reference's behaviour too) and verifies nothing
-EC_LOCATION_CACHE_S = 10.0
 
 
 class _Fleet:
@@ -1999,13 +2028,20 @@ class _Fleet:
         self.k1_gone: dict[int, int] = {}  # K1 by R of killed servers
 
     def _spawn(self, name: str, args: list[str], port: int, d: str,
-               env: dict | None = None):
+               env: dict | None = None, modules: str = ""):
+        """`modules`: a file the process writes its sys.modules to as it
+        exits."""
         log_f = open(os.path.join(self.root, f"{name}.log"), "wb")
+        cmd = ([sys.executable, "-c", _MODULES_WRAPPER, modules] if modules
+               else [sys.executable, "-m", "seaweedfs_tpu_torch"])
         proc = subprocess.Popen(
-            [sys.executable, "-m", "seaweedfs_tpu_torch"] + args, cwd=HERE,
-            env={**self.env, **(env or {})}, stdout=log_f,
-            stderr=subprocess.STDOUT)
+            cmd + args, cwd=HERE, env={**self.env, **(env or {})},
+            stdout=log_f, stderr=subprocess.STDOUT)
         self.procs[name] = (proc, log_f, port, d)
+
+    @staticmethod
+    def is_volume(name: str) -> bool:
+        return not name.startswith(("master", "filer", "s3"))
 
     def spawn_master(self) -> None:
         self._spawn("master", ["master", "-ip", "127.0.0.1", "-port",
@@ -2066,8 +2102,7 @@ class _Fleet:
         """{address: (name, dir)} of the running volume servers."""
         return {f"127.0.0.1:{p}": (n, d)
                 for n, (proc, _, p, d) in self.procs.items()
-                if n != "master" and not n.startswith("filer")
-                and proc.poll() is None}
+                if self.is_volume(n) and proc.poll() is None}
 
     def wait_up(self, names, timeout: float = SERVER_START_S) -> float:
         """Wait until each process answers /status and the master lists
@@ -2101,13 +2136,15 @@ class _Fleet:
                                      f"{sorted(want)}")
             time.sleep(0.2)
 
-    def shell(self, *lines: str) -> tuple[str, float]:
+    def shell(self, *lines: str, filer: str = "") -> tuple[str, float]:
         """Commands through `python3 -m seaweedfs_tpu_torch shell` on
-        stdin; -> (output, seconds). A command that fails fails the run."""
+        stdin (with `-filer` when given); -> (output, seconds). A command
+        that fails fails the run."""
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
-             "-master", self.master], cwd=HERE, env=self.env,
+             "-master", self.master] + (["-filer", filer] if filer else []),
+            cwd=HERE, env=self.env,
             input="\n".join(lines) + "\n", capture_output=True, text=True,
             timeout=CLUSTER_CALL_S)
         wall = time.perf_counter() - t0
@@ -2123,8 +2160,7 @@ class _Fleet:
         included (read just before they were killed)."""
         out = dict(self.k1_gone)
         for name, (proc, _, port, _) in self.procs.items():
-            if name == "master" or name.startswith("filer") or \
-                    proc.poll() is not None:
+            if not self.is_volume(name) or proc.poll() is not None:
                 continue
             for (k, r), n in _kernel_launches(port).items():
                 if k == "gf_xor" and r:
@@ -2729,9 +2765,9 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             raise AssertionError(f"{phase}: the rebuild launched K1 by R "
                                  f"{reb_k1}")
 
-        # 6. a byte flipped in one shard on disk; volume.scrub -full, once
-        # the servers' cached shard locations include the rebuilt ones
-        time.sleep(EC_LOCATION_CACHE_S + 1)
+        # 6. a byte flipped in one shard on disk; volume.scrub -full right
+        # away (a server whose cached shard map predates the rebuild asks
+        # the master again)
         node = sorted(a for a in set(where.values()) if a != m.group(2))[0]
         sid = min(s for s, a in where.items() if a == node)
         path = geo.shard_file_name(os.path.join(
@@ -2861,7 +2897,7 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
 FILER_LIMIT_MB = 256  # the master's -volumeSizeLimitMB
 FILER_COLLECTION = "fc"
-FILER_SMALL = 8000  # files of 1-64 KiB: FILER_WIDE in one directory,
+FILER_SMALL = 5000  # files of 1-64 KiB: FILER_WIDE in one directory,
 FILER_WIDE = 1000  # the rest in FILER_DIRS nested directories
 FILER_DIRS = 64
 FILER_LARGE = 24  # files of 8-64 MiB: 2-16 chunks at the default -maxMB 4
@@ -2993,6 +3029,329 @@ def _wait_listed(fleet: _Fleet, vols: dict) -> None:
         time.sleep(0.3)
 
 
+S3_BUCKET = "smoke"
+S3_OBJECTS = 2000  # objects of 1-64 KiB over S3_PREFIXES prefixes
+S3_PREFIXES = 16
+S3_MULTIPART = 4  # objects of S3_MULTIPART_MIB in S3_PART parts
+S3_MULTIPART_MIB = (24, 48)
+S3_PART = 8 * MIB
+S3_PAGE = 50  # ListObjectsV2 max-keys: each prefix's listing pages
+S3_IDENTITY = ("phase", "AKPHASE0000000000001", "phase-secret-0001")
+S3_ACTIONS = "Read,Write,List,Tagging,Admin"
+BENCH_N, BENCH_SIZE, BENCH_COLLECTION = 2000, 4096, "bench"
+# runs the CLI as `python3 -m seaweedfs_tpu_torch` does and writes the
+# names in sys.modules to argv[1] as the process exits
+_MODULES_WRAPPER = """
+import atexit, runpy, sys
+out = sys.argv[1]
+
+
+def dump():
+    with open(out, "w") as f:
+        f.write("\\n".join(sorted(sys.modules)))
+
+
+atexit.register(dump)
+sys.argv = ["seaweedfs_tpu_torch"] + sys.argv[2:]
+runpy.run_module("seaweedfs_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+class _S3Client:
+    """SigV4-signed requests to the phase's gateway (the port's signer)
+    on a caller's keep-alive connection."""
+
+    def __init__(self, port: int):
+        self.port = port
+        self.base = f"http://127.0.0.1:{port}"
+
+    def call(self, conn, method: str, path: str, body: bytes = b"",
+             headers: dict | None = None):
+        """-> (status, body bytes, response)."""
+        from seaweedfs_tpu_torch.s3api import sigv4_client
+
+        h = dict(headers or {})
+        h.update(sigv4_client.sign_request(method, self.base + path, body,
+                                           S3_IDENTITY[1], S3_IDENTITY[2]))
+        conn.request(method, path, body=body, headers=h)
+        r = conn.getresponse()
+        return r.status, r.read(), r
+
+
+def _s3_objects(rng, payload_len: int) -> tuple[list, list]:
+    """([(key, start, size)] of 1-64 KiB, [(key, start, size)] of the
+    multipart objects): slices of the filer's payload."""
+    small = []
+    for i in range(S3_OBJECTS):
+        size = int(rng.integers(1, 64 * 1024 + 1))
+        small.append((f"p{i % S3_PREFIXES:02d}/o{i:05d}.bin",
+                      int(rng.integers(0, payload_len - size)), size))
+    large = []
+    for j in range(S3_MULTIPART):
+        lo, hi = S3_MULTIPART_MIB
+        size = int(rng.integers(lo * MIB, hi * MIB + 1))
+        large.append((f"mp/m{j}.bin",
+                      int(rng.integers(0, payload_len - size)), size))
+    return small, large
+
+
+def _s3_multipart(phase: str, s3: _S3Client, conn, key: str, parts
+                  ) -> str:
+    """One multipart upload of `parts` (bodies, or (source, None) copies
+    by UploadPartCopy); -> the ETag CompleteMultipartUpload answered."""
+    path = f"/{S3_BUCKET}/{key}"
+    st, body, _ = s3.call(conn, "POST", f"{path}?uploads")
+    m = re.search(rb"<UploadId>([^<]+)</UploadId>", body)
+    if st != 200 or not m:
+        raise AssertionError(f"{phase}: initiate {key}: {st} {body[:300]!r}")
+    uid = m.group(1).decode()
+    for n, part in enumerate(parts, 1):
+        q = f"{path}?partNumber={n}&uploadId={uid}"
+        if isinstance(part, str):
+            st, body, _ = s3.call(conn, "PUT", q,
+                                  headers={"x-amz-copy-source": part})
+        else:
+            st, body, _ = s3.call(conn, "PUT", q, bytes(part))
+        if st != 200:
+            raise AssertionError(f"{phase}: part {n} of {key}: {st} "
+                                 f"{body[:300]!r}")
+    st, body, _ = s3.call(conn, "POST", f"{path}?uploadId={uid}")
+    m = re.search(rb'<ETag>"([^"]+)"</ETag>', body)
+    if st != 200 or not m:
+        raise AssertionError(f"{phase}: complete {key}: {st} "
+                             f"{body[:300]!r}")
+    return m.group(1).decode()
+
+
+def _s3_writes(phase: str, fleet: _Fleet, sport: int, faddr: str,
+               files: _FilerFiles, rng) -> dict:
+    """The S3 step's writes, listings, copies and the CLI's benchmark
+    (see the module docstring); -> what the reads after the loss need."""
+    from seaweedfs_tpu_torch.iamapi import IAM_CONFIG_DIR, IAM_CONFIG_FILE
+    from seaweedfs_tpu_torch.pb import filer_pb2, s3_pb2
+
+    s3 = _S3Client(sport)
+    # 1. an identity through the shell, pushed to the gateway's Configure
+    t0 = time.perf_counter()
+    name, ak, sk = S3_IDENTITY
+    out, _ = fleet.shell(
+        f"s3.configure -user={name} -access_key={ak} -secret_key={sk} "
+        f"-actions={S3_ACTIONS} -apply",
+        f"s3.bucket.create -name={S3_BUCKET}", "s3.bucket.list",
+        filer=faddr)
+    if f"created bucket {S3_BUCKET}" not in out:
+        raise AssertionError(f"{phase}: s3.* said:\n{out}")
+    doc = rpc.filer_stub(rpc.grpc_address(faddr)).LookupDirectoryEntry(
+        filer_pb2.LookupDirectoryEntryRequest(
+            directory=IAM_CONFIG_DIR, name=IAM_CONFIG_FILE),
+        timeout=60).entry.content
+    rpc.s3_stub(rpc.grpc_address(f"127.0.0.1:{sport}")).Configure(
+        s3_pb2.S3ConfigureRequest(s3_configuration_file_content=doc),
+        timeout=60)
+    conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=600)
+    try:
+        st, _ = _http(conn, "PUT", f"/{S3_BUCKET}/unsigned.bin", b"x")
+        if st != 403:
+            raise AssertionError(f"{phase}: an unsigned PUT answered {st}")
+    finally:
+        conn.close()
+    cred_s = time.perf_counter() - t0
+
+    # 2. objects by 8 clients, then the multipart ones at once
+    small, large = _s3_objects(rng, len(files.payload))
+    data = {key: memoryview(files.payload)[a:a + n]
+            for key, a, n in small + large}
+
+    def put(conn, key):
+        body = bytes(data[key])
+        st, said, r = s3.call(conn, "PUT", f"/{S3_BUCKET}/{key}", body)
+        if st != 200 or r.getheader("ETag") != \
+                f'"{hashlib.md5(body).hexdigest()}"':
+            raise AssertionError(f"{phase}: PUT {key}: {st} {said[:300]!r}")
+
+    t0 = time.perf_counter()
+    _clients(sport, put, [k for k, _, _ in small])
+    small_s = time.perf_counter() - t0
+
+    def upload(item):
+        key, a, n = item
+        conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=600)
+        try:
+            parts = [data[key][off:off + S3_PART]
+                     for off in range(0, n, S3_PART)]
+            return _s3_multipart(phase, s3, conn, key, parts), len(parts)
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    completed = dict(zip([k for k, _, _ in large],
+                         _all_at_once(upload, large)))
+    large_s = time.perf_counter() - t0
+    for key, (etag, nparts) in completed.items():
+        want = f"{hashlib.md5(str(len(data[key])).encode()).hexdigest()}" \
+               f"-{nparts}"
+        if etag != want:
+            raise AssertionError(f"{phase}: {key} completed with ETag "
+                                 f"{etag}, not {want}")
+    nbytes = sum(n for _, _, n in small + large)
+
+    # 3. a paged ListObjectsV2 with a delimiter; a copy and a part copy
+    conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        st, body, _ = s3.call(conn, "GET", f"/{S3_BUCKET}?list-type=2"
+                                           f"&delimiter=/")
+        prefixes = [p.decode() for p in re.findall(
+            rb"<CommonPrefixes><Prefix>([^<]+)</Prefix>", body)]
+        listed, pages = [], 0
+        for prefix in prefixes:
+            token = ""
+            while True:
+                q = (f"/{S3_BUCKET}?list-type=2&delimiter=/&prefix={prefix}"
+                     f"&max-keys={S3_PAGE}")
+                if token:
+                    q += f"&continuation-token={token}"
+                st, body, _ = s3.call(conn, "GET", q)
+                if st != 200:
+                    raise AssertionError(f"{phase}: list {q}: {st}")
+                pages += 1
+                listed += [k.decode() for k in
+                           re.findall(rb"<Key>([^<]+)</Key>", body)]
+                m = re.search(rb"<NextContinuationToken>([^<]+)<", body)
+                if b"<IsTruncated>true" not in body:
+                    break
+                if not m:
+                    raise AssertionError(f"{phase}: {q} truncated with no "
+                                         f"continuation token")
+                token = m.group(1).decode()
+        list_s = time.perf_counter() - t0
+        if sorted(listed) != sorted(data):
+            raise AssertionError(f"{phase}: the listing gave {len(listed)} "
+                                 f"keys of {len(data)}")
+        t0 = time.perf_counter()
+        src0, src1 = large[0][0], large[1][0]
+        st, body, _ = s3.call(conn, "PUT", f"/{S3_BUCKET}/copies/m0.bin",
+                              headers={"x-amz-copy-source":
+                                       f"/{S3_BUCKET}/{src0}"})
+        if st != 200 or b"CopyObjectResult" not in body:
+            raise AssertionError(f"{phase}: CopyObject: {st} {body[:300]!r}")
+        _s3_multipart(phase, s3, conn, "upc/m1.bin", [f"/{S3_BUCKET}/{src1}"])
+        data["copies/m0.bin"] = data[src0]
+        data["upc/m1.bin"] = data[src1]
+        for key in ("copies/m0.bin", "upc/m1.bin"):
+            st, body, _ = s3.call(conn, "GET", f"/{S3_BUCKET}/{key}")
+            if st != 200 or body != data[key]:
+                raise AssertionError(f"{phase}: GET {key} after the copy: "
+                                     f"{st}, {len(body)} B")
+        copy_s = time.perf_counter() - t0
+    finally:
+        conn.close()
+
+    # 4. the CLI's benchmark against the fleet's master
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "benchmark",
+         "-master", fleet.master, "-n", str(BENCH_N), "-size",
+         str(BENCH_SIZE), "-c", str(SERVER_CLIENTS), "-collection",
+         BENCH_COLLECTION], cwd=HERE, env=fleet.env, capture_output=True,
+        text=True, timeout=CLUSTER_CALL_S)
+    bench_s = time.perf_counter() - t0
+    w = re.search(r"write: ([\d.]+) req/s, ([\d.]+) MB/s, [\d.]+ s total, "
+                  r"(\d+) failed", r.stdout)
+    rd = re.search(r"read: ([\d.]+) req/s, [\d.]+ s total, (\d+) failed",
+                   r.stdout)
+    if r.returncode or not w or not rd or w.group(3) != "0" or \
+            rd.group(2) != "0":
+        raise AssertionError(f"{phase}: benchmark exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    lat = re.findall(r"latency: (.*)", r.stdout)
+    log(phase, f"S3 gateway (`s3 -filer {faddr}`): shell -filer "
+               f"s3.configure ({S3_ACTIONS}) and s3.bucket.create, the "
+               f"identity pushed through SeaweedS3.Configure, an unsigned "
+               f"PUT refused 403 ({cred_s:.2f} s); {len(small)} objects of "
+               f"1-64 KiB over {S3_PREFIXES} prefixes PUT SigV4-signed by "
+               f"{SERVER_CLIENTS} clients in {small_s:.3f} s "
+               f"({len(small) / small_s:.0f} objects/s) and {len(large)} of "
+               f"{S3_MULTIPART_MIB[0]}-{S3_MULTIPART_MIB[1]} MiB in "
+               f"{S3_PART >> 20} MiB parts at once in "
+               f"{large_s:.3f} s: {nbytes} B in {small_s + large_s:.3f} s "
+               f"= {nbytes / (small_s + large_s) / 1e9:.3f} GB/s, "
+               f"{(len(small) + len(large)) / (small_s + large_s):.0f} "
+               f"objects/s; completed ETags md5(size)-parts; "
+               f"ListObjectsV2 with delimiter / listed every key "
+               f"({len(prefixes)} prefixes, {pages} pages of {S3_PAGE}, "
+               f"{list_s:.3f} s); CopyObject of {src0} and an "
+               f"UploadPartCopy of {src1} equal to their sources "
+               f"({copy_s:.3f} s); benchmark -n {BENCH_N} -size "
+               f"{BENCH_SIZE} -c {SERVER_CLIENTS}: write {w.group(1)} req/s "
+               f"({w.group(2)} MB/s), read {rd.group(1)} req/s, 0 failed "
+               f"({bench_s:.2f} s with the process start; latency "
+               f"{'; '.join(lat)})")
+    return dict(s3=s3, data=data, large=[k for k, _, _ in large],
+                written=nbytes, write_s=small_s + large_s,
+                objects=len(small) + len(large),
+                bench=(float(w.group(1)), float(rd.group(1))))
+
+
+def _s3_reads(phase: str, fleet: _Fleet, sport: int, faddr: str, s3w: dict,
+              touching: set) -> dict:
+    """Every S3 object GET through the gateway after the loss, byte-exact
+    with its ETag; one Range GET across a part boundary; -> numbers."""
+    s3, data = s3w["s3"], s3w["data"]
+    etags = {}
+    for d in ("mp", "upc"):
+        for e in _filer_entries(faddr, f"/buckets/{S3_BUCKET}/{d}"):
+            h = hashlib.md5()
+            for c in e.chunks:
+                h.update((c.e_tag or c.file_id).encode())
+            etags[f"{d}/{e.name}"] = f"{h.hexdigest()}-{len(e.chunks)}"
+    keys = sorted(data)
+
+    def get(conn, key):
+        t0 = time.perf_counter()
+        st, body, r = s3.call(conn, "GET", f"/{S3_BUCKET}/{key}")
+        dt = time.perf_counter() - t0
+        if st != 200 or body != data[key]:
+            raise AssertionError(f"{phase}: S3 GET {key}: {st}, "
+                                 f"{len(body)} B, not the bytes written")
+        want = etags.get(key) or hashlib.md5(body).hexdigest()
+        if r.getheader("ETag") != f'"{want}"':
+            raise AssertionError(f"{phase}: S3 GET {key}: ETag "
+                                 f"{r.getheader('ETag')}, not {want}")
+        return dt
+
+    k0 = fleet.k1()
+    got = _clients(sport, get, keys)
+    k1 = fleet.k1()
+    key = s3w["large"][0]
+    a, b = S3_PART - 1000, S3_PART + 999
+    conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=600)
+    try:
+        st, body, r = s3.call(conn, "GET", f"/{S3_BUCKET}/{key}",
+                              headers={"Range": f"bytes={a}-{b}"})
+    finally:
+        conn.close()
+    if st != 206 or body != data[key][a:b + 1]:
+        raise AssertionError(f"{phase}: S3 range GET of {key}: {st}")
+    deg = [t for k, t in zip(keys, got)
+           if f"/buckets/{S3_BUCKET}/{k}" in touching]
+    rest = [t for k, t in zip(keys, got)
+            if f"/buckets/{S3_BUCKET}/{k}" not in touching]
+    reads_k1 = _k1_step(k0, k1)
+    log(phase, f"every S3 object GET SigV4-signed through the gateway by "
+               f"{SERVER_CLIENTS} readers, byte-exact with its ETag: "
+               f"{len(keys)} in all ({_ms(got)}), {len(deg)} with a chunk "
+               f"on a lost shard ({_ms(deg)}), {len(rest)} others "
+               f"({_ms(rest)}); a Range GET of {key} across its first "
+               f"part boundary byte-exact (206); K1 launches by R in these "
+               f"reads {reads_k1}")
+    if not deg or not reads_k1.get(4):
+        raise AssertionError(f"{phase}: the S3 reads with a chunk on a "
+                             f"lost shard ({len(deg)}) launched K1 by R "
+                             f"{reads_k1}, none at R = 4")
+    return dict(all=got, deg=deg, rest=rest, k1=reads_k1)
+
+
 def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The filer as an operator runs it (see the module docstring):
     files written through its HTTP API, their volumes erasure-coded by
@@ -3019,14 +3378,21 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             fleet.spawn_volume(f"v{i}", rack)
         fport = fleet.spawn_filer("filer", FILER_COLLECTION, fdir, fenv)
         faddr = f"127.0.0.1:{fport}"
-        up_s = fleet.wait_up(["master", "filer"] +
+        sport = _free_port_pair()
+        while sport in fleet.ports() + [fleet.master_port]:
+            sport = _free_port_pair()
+        s3_modules = os.path.join(root, "s3.modules")
+        fleet._spawn("s3", ["s3", "-port", str(sport), "-filer", faddr],
+                     sport, "", modules=s3_modules)
+        up_s = fleet.wait_up(["master", "filer", "s3"] +
                              [f"v{i}" for i in range(len(CLUSTER_RACKS))])
         rpc.reset_channels()  # no channel dialled before the listeners
         log(phase, f"one master (-volumeSizeLimitMB {FILER_LIMIT_MB}), "
                    f"{len(CLUSTER_RACKS)} volume servers (default coder, "
-                   f"racks {'/'.join(CLUSTER_RACKS)}) and a filer (-store "
+                   f"racks {'/'.join(CLUSTER_RACKS)}), a filer (-store "
                    f"sqlite, -maxMB 4, -collection {FILER_COLLECTION}, "
-                   f"chunk cache off) started at once: up in {up_s:.2f} s")
+                   f"chunk cache off) and an S3 gateway over it started at "
+                   f"once: up in {up_s:.2f} s")
 
         # 2. about 1 GiB of files through the filer's HTTP API, 8 clients
         rng = np.random.default_rng(seed)
@@ -3108,6 +3474,10 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"{large[0]} renamed (gRPC AtomicRenameEntry); /fs/d7 "
                    f"deleted recursively ({len(gone)} files)")
 
+        # 2b. the S3 gateway: credentials, objects, listings, copies, and
+        # the CLI's benchmark
+        s3w = _s3_writes(phase, fleet, sport, faddr, files, rng)
+
         # 3. the shell's streamed ec.encode of every volume holding chunks
         vols = _filer_volumes(fleet)
         _wait_listed(fleet, vols)
@@ -3170,7 +3540,9 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             raise AssertionError(f"{phase}: no server holds 4 shards: "
                                  f"{held}")
         chunks_of = {}
-        for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+        s3_dirs = {f"/buckets/{S3_BUCKET}/{k.rsplit('/', 1)[0]}"
+                   for k in s3w["data"]}
+        for d in sorted({p.rsplit("/", 1)[0] for p in paths} | s3_dirs):
             for e in _filer_entries(faddr, d):
                 chunks_of[f"{d}/{e.name}"] = [parse_file_id(c.file_id)
                                               for c in e.chunks]
@@ -3202,6 +3574,22 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         if not get_k1.get(4):
             raise AssertionError(f"{phase}: the degraded GETs launched K1 "
                                  f"by R {get_k1}, none at R = 4")
+
+        # 4b. every S3 object read back through the gateway; its SIGTERM
+        s3r = _s3_reads(phase, fleet, sport, faddr, s3w, touching)
+        proc = fleet.procs["s3"][0]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        with open(s3_modules) as f:
+            mods = f.read().split("\n")
+        jax_mods = [m for m in mods if m in ("jax", "seaweedfs_tpu")
+                    or m.startswith(("jax.", "seaweedfs_tpu."))]
+        if rc != 0 or "seaweedfs_tpu_torch.s3api.server" not in mods or \
+                jax_mods:
+            raise AssertionError(f"{phase}: the s3 process exited {rc}; "
+                                 f"jax or seaweedfs_tpu modules {jax_mods}")
+        log(phase, f"s3 SIGTERM: exit 0, {len(mods)} modules and none of "
+                   f"jax or seaweedfs_tpu in its sys.modules")
 
         # the shell with -filer: fs.ls, fs.du, fs.cat, fs.verify
         t0 = time.perf_counter()
@@ -3274,7 +3662,14 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"({(len(paths) + len(gone)) / write_s:.0f} files/s), "
                    f"live GETs {_ms(live_ms)}, degraded GETs {_ms(deg)}, "
                    f"encode {enc_s:.3f} s of shell wall, filer restart "
-                   f"{restart_s:.2f} s; gf_xor by R over every server "
+                   f"{restart_s:.2f} s; S3 PUTs "
+                   f"{s3w['written'] / s3w['write_s'] / 1e9:.3f} GB/s "
+                   f"({s3w['objects'] / s3w['write_s']:.0f} objects/s), S3 "
+                   f"GETs after the loss {_ms(s3r['all'])}, on a lost "
+                   f"shard {_ms(s3r['deg'])}, others {_ms(s3r['rest'])}, "
+                   f"K1 in them {s3r['k1']}; benchmark write "
+                   f"{s3w['bench'][0]:.1f} req/s, read "
+                   f"{s3w['bench'][1]:.1f} req/s; gf_xor by R over every server "
                    f"{dict(sorted(by_r.items()))}; phase wall "
                    f"{time.perf_counter() - t_phase:.3f} s; nvidia-smi: "
                    f"{smi}")

@@ -2,15 +2,17 @@
 SeaweedFS weed/weed.go:47, weed/command/command.go:11-45). Run as
 `python -m seaweedfs_tpu_torch <cmd>`.
 
-Subcommands: master, volume, filer, server (master + volume, and a
-filer with -filer, in one process), shell, upload, download, version.
-The volume servers' erasure coder is the CUDA card by default (`-coder
-cuda`): without one they fail at start, and nothing falls back to the
-CPU unless `-coder cpu` (numpy) or `-coder native` (g++) asks for it.
-S3 and the other gateways, the filer's sync, replicate, backup and remote
-tools, the master's Raft group (`-peers`), `benchmark` and the offline
-tools are not part of the port yet: their commands and flags fail at
-start, naming the ROADMAP.md item that will port them (`DEFERRED`).
+Subcommands: master, volume, filer, s3, server (master + volume, and a
+filer with -filer, a filer and an S3 gateway with -s3, in one process),
+shell, upload, download, benchmark, version. The volume servers' erasure
+coder is the CUDA card by default (`-coder cuda`): without one they fail
+at start, and nothing falls back to the CPU unless `-coder cpu` (numpy)
+or `-coder native` (g++) asks for it. The other gateways, the filer's
+sync, replicate, backup and remote tools, the master's Raft group
+(`-peers`), the compiled benchmark client (`benchmark -filer`,
+`-nativeClient`) and the offline tools are not part of the port yet:
+their commands and flags fail at start, naming the ROADMAP.md item that
+will port them (`DEFERRED`).
 """
 
 from __future__ import annotations
@@ -21,17 +23,14 @@ import sys
 import threading
 
 ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
-ROADMAP_S3 = "ROADMAP.md A2d (S3 gateway)"
 ROADMAP_GATEWAYS = "ROADMAP.md A2d (other gateways)"
 ROADMAP_FILER_TOOLS = "ROADMAP.md A2d (filer tools)"
 ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
 ROADMAP_OFFLINE = "ROADMAP.md A2d (offline tools)"
-ROADMAP_BENCHMARK = "ROADMAP.md A6 (benchmark)"
 
 #: the reference's subcommands the port does not carry yet, each with
 #: the ROADMAP.md item that will port it
 DEFERRED = {
-    "s3": ROADMAP_S3,
     **{c: ROADMAP_GATEWAYS for c in ("webdav", "ftp", "iam", "mq.broker",
                                      "mount", "fuse")},
     **{c: ROADMAP_FILER_TOOLS for c in (
@@ -40,7 +39,6 @@ DEFERRED = {
     **{c: ROADMAP_REMOTE for c in ("filer.remote.sync",
                                    "filer.remote.gateway")},
     "master.follower": ROADMAP_RAFT,
-    "benchmark": ROADMAP_BENCHMARK,
     **{c: ROADMAP_OFFLINE for c in ("backup", "compact", "fix", "export",
                                     "scaffold", "autocomplete",
                                     "unautocomplete", "update")},
@@ -124,8 +122,12 @@ def main(argv=None) -> int:
     fp.add_argument("-maxMB", type=int, default=4,
                     help="split files into chunks of this many MB")
 
+    s3p = sub.add_parser("s3", help="run an S3 gateway")
+    s3p.add_argument("-port", type=int, default=8333)
+    s3p.add_argument("-filer", default="localhost:8888")
+
     sp = sub.add_parser("server",
-                        help="master + volume (+filer) in one process")
+                        help="master + volume (+filer +s3) in one process")
     sp.add_argument("-dir", default="./data")
     sp.add_argument("-ip", default="localhost")
     sp.add_argument("-master.port", dest="master_port", type=int,
@@ -139,8 +141,7 @@ def main(argv=None) -> int:
                     help="also run a filer")
     sp.add_argument("-filer.port", dest="filer_port", type=int, default=8888)
     sp.add_argument("-s3", action="store_true",
-                    help="also run an S3 gateway (not part of the port "
-                         "yet: fails at start)")
+                    help="also run a filer and an S3 gateway over it")
     sp.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
     sp.add_argument("-volume.nativeDataPlane", dest="volume_native",
                     default="auto", nargs="?", const="on",
@@ -164,6 +165,26 @@ def main(argv=None) -> int:
     dp.add_argument("-master", default="localhost:9333")
     dp.add_argument("-output", default="-")
     dp.add_argument("fid")
+
+    bp = sub.add_parser("benchmark", help="small-file write/read benchmark")
+    bp.add_argument("-master", default="localhost:9333")
+    bp.add_argument("-n", type=int, default=10_000)
+    bp.add_argument("-size", type=int, default=1024)
+    bp.add_argument("-c", type=int, default=16)
+    bp.add_argument("-collection", default="")
+    bp.add_argument("-write", dest="do_write", action="store_true",
+                    default=True)
+    bp.add_argument("-skipRead", action="store_true")
+    bp.add_argument("-assignBatch", type=int, default=0,
+                    help="files per master assign (fid _delta suffixes); "
+                         "0 = 1")
+    bp.add_argument("-nativeClient", action="store_true",
+                    help="the compiled C++ client loop (not part of the "
+                         "port yet: fails at start)")
+    bp.add_argument("-filer", default="",
+                    help="whole-object PUT/GET through this filer with the "
+                         "compiled client (not part of the port yet: a "
+                         "non-empty value fails at start)")
 
     sub.add_parser("version", help="print version")
     # registered so that global flags before them parse; they refuse below
@@ -238,9 +259,6 @@ def _run(opts) -> int:
         from ..server.master import MasterServer
         from ..server.volume import VolumeServer
 
-        if opts.s3:
-            raise SystemExit(f"server: -s3 is not part of the PyTorch port "
-                             f"yet: {ROADMAP_S3}")
         coder = (None if opts.coder == "cuda"
                  else new_coder(backend=opts.coder))
         try:
@@ -254,7 +272,7 @@ def _run(opts) -> int:
         except (RuntimeError, NotImplementedError) as e:
             raise SystemExit(f"server: {e}")
         fs = None
-        if opts.filer:
+        if opts.filer or opts.s3:
             from ..server.filer import FilerServer
 
             try:
@@ -271,6 +289,13 @@ def _run(opts) -> int:
         if fs is not None:
             fs.start()
             stoppers.insert(0, fs.stop)
+        if opts.s3:
+            from ..s3api.server import S3Server
+
+            s3 = S3Server(port=opts.s3_port,
+                          filer=f"{opts.ip}:{opts.filer_port}")
+            s3.start()
+            stoppers.insert(0, s3.stop)
         _wait_forever()
         for stop in stoppers:
             stop()
@@ -300,6 +325,24 @@ def _run(opts) -> int:
         fs.start()
         _wait_forever()
         fs.stop()
+        return 0
+
+    if opts.cmd == "s3":
+        from ..s3api.server import S3Server
+
+        s3 = S3Server(port=opts.port, filer=opts.filer)
+        s3.start()
+        _wait_forever()
+        s3.stop()
+        return 0
+
+    if opts.cmd == "benchmark":
+        from .benchmark import run_benchmark
+
+        try:
+            run_benchmark(opts)
+        except NotImplementedError as e:
+            raise SystemExit(f"benchmark: {e}")
         return 0
 
     if opts.cmd == "upload":

@@ -9,8 +9,8 @@ so service classes are derived from descriptor tables instead of generated
 code — the wire format is identical).
 
 Counterpart of seaweedfs_tpu/pb/rpc.py with the tables that the volume
-server, the master and the filer serve or dial. The MQ, S3, mount, IAM,
-TiKV, YDB and etcd tables are not part of the port yet.
+server, the master, the filer and the S3 gateway serve or dial. The MQ,
+mount, IAM, TiKV, YDB and etcd tables are not part of the port yet.
 
 Convention kept from the reference: a server's gRPC port is its HTTP port
 + 10000 (weed/pb/server_address.go).
@@ -31,6 +31,7 @@ from . import (
     master_pb2,
     meta_ring_pb2,
     qos_pb2,
+    s3_pb2,
     scrub_pb2,
     volume_server_pb2,
 )
@@ -483,5 +484,14 @@ def volume_stub(address: str) -> Stub:
     return Stub(cached_channel(address), VOLUME_SERVICE, address)
 
 
+S3_SERVICE = ("s3_pb.SeaweedS3", [
+    _m("Configure", s3_pb2.S3ConfigureRequest, s3_pb2.S3ConfigureResponse),
+])
+
+
 def filer_stub(address: str) -> Stub:
     return Stub(cached_channel(address), FILER_SERVICE, address)
+
+
+def s3_stub(address: str) -> Stub:
+    return Stub(cached_channel(address), S3_SERVICE, address)

@@ -916,22 +916,27 @@ class Scrubber:
         plans dict means nothing is verifiable from here."""
         from ..models.geometry import UnsolvableError
 
-        locs = srv._lookup_ec_shards(vid)
-        shard_addrs = {
-            sid: [a for a in addrs if a != srv.address]
-            for sid, addrs in locs.items()}
-        shard_addrs = {s: a for s, a in shard_addrs.items() if a}
         local = set(ev.shard_files)
-        all_present = tuple(sorted(local | set(shard_addrs)))
-        plans = {}
-        for sid in sorted(local):
-            try:
-                plan = geom.repair_plan(
-                    (sid,), tuple(i for i in all_present if i != sid))
-            except (UnsolvableError, ValueError):
-                continue
-            if all(i in local or i in shard_addrs for i in plan.reads):
-                plans[sid] = plan
+        for refresh in (False, True):
+            locs = srv._lookup_ec_shards(vid, refresh=refresh)
+            shard_addrs = {
+                sid: [a for a in addrs if a != srv.address]
+                for sid, addrs in locs.items()}
+            shard_addrs = {s: a for s, a in shard_addrs.items() if a}
+            all_present = tuple(sorted(local | set(shard_addrs)))
+            plans = {}
+            for sid in sorted(local):
+                try:
+                    plan = geom.repair_plan(
+                        (sid,), tuple(i for i in all_present if i != sid))
+                except (UnsolvableError, ValueError):
+                    continue
+                if all(i in local or i in shard_addrs for i in plan.reads):
+                    plans[sid] = plan
+            if len(plans) == len(local):
+                break
+            # a local shard left unverifiable: the cached map may predate
+            # a rebuild or a server's return, so ask the master once more
         return shard_addrs, all_present, plans
 
     def _verify_ec_volume_cross(self, loc, vid: int, full: bool,
@@ -1002,6 +1007,9 @@ class Scrubber:
                 except gather_mod.GatherError as e:
                     glog.warning(f"scrub: cross-server verify of ec vol "
                                  f"{vid} degraded: {e}")
+                    # a holder that no longer answers: the next lookup
+                    # asks the master
+                    srv._ec_loc_cache.pop(vid, None)
                     covered = False
                     break
                 for i, b in remote_rows.items():

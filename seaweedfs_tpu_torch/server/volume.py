@@ -75,6 +75,11 @@ from ..utils.stats import (
 )
 
 BUFFER_SIZE_LIMIT = 2 * 1024 * 1024  # streaming chunk (volume_grpc_copy.go:25)
+# how long the master's EC shard map of a volume is kept
+# (cachedLookupEcShardLocations, store_ec.go:238), and how long a failed
+# or empty answer is
+EC_LOCATION_TTL_S = 10.0
+EC_LOCATION_RETRY_S = 1.0
 
 # ROADMAP.md items that will port what this module answers UNIMPLEMENTED
 ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
@@ -559,17 +564,31 @@ class VolumeServer:
             except OSError as e:  # includes injected FailpointError
                 glog.v(1, f"ec vol {vid} shard {sid} local read failed "
                           f"({e}); degrading to remote/reconstruct")
-        locs = self._lookup_ec_shards(vid)
-        for addr in locs.get(sid, []):
-            if addr == self.address:
-                continue
+        locs, cached = self._ec_shard_locations(vid)
+        while True:
+            for addr in locs.get(sid, []):
+                if addr == self.address:
+                    continue
+                try:
+                    return self._remote_shard_read(addr, vid, sid, soff,
+                                                   size)
+                except grpc.RpcError:
+                    # a holder that no longer answers: the next lookup
+                    # asks the master
+                    self._ec_loc_cache.pop(vid, None)
+                    continue
+            # degraded: gather k intervals from local+remote shards in
+            # parallel (recoverOneRemoteEcShardInterval,
+            # store_ec.go:339-393)
             try:
-                return self._remote_shard_read(addr, vid, sid, soff, size)
-            except grpc.RpcError:
-                continue
-        # degraded: gather k intervals from local+remote shards in parallel
-        # (recoverOneRemoteEcShardInterval, store_ec.go:339-393)
-        return self._reconstruct_interval(ev, vid, sid, soff, size, locs)
+                return self._reconstruct_interval(ev, vid, sid, soff, size,
+                                                  locs)
+            except IOError:
+                if not cached:
+                    raise
+            # the cached map may predate a lost server, a rebuild or a
+            # master that answers again: ask the master once more
+            locs, cached = self._ec_shard_locations(vid, refresh=True)
 
     def _remote_shard_read(self, addr: str, vid: int, sid: int,
                            soff: int, size: int) -> bytes:
@@ -820,12 +839,23 @@ class VolumeServer:
         EC_REPAIR_PLANS.inc(geometry=geo.code_name, kind="degraded_read")
         return to_host(rows[list(mids).index(sid)]).tobytes()
 
-    def _lookup_ec_shards(self, vid: int) -> dict[int, list[str]]:
-        """cachedLookupEcShardLocations (store_ec.go:238), 10s TTL."""
+    def _lookup_ec_shards(self, vid: int,
+                          refresh: bool = False) -> dict[int, list[str]]:
+        """cachedLookupEcShardLocations (store_ec.go:238): the master's
+        EC shard map of `vid`, cached as _ec_shard_locations says."""
+        return self._ec_shard_locations(vid, refresh)[0]
+
+    def _ec_shard_locations(self, vid: int, refresh: bool = False
+                            ) -> tuple[dict[int, list[str]], bool]:
+        """-> (the master's EC shard map of `vid`, whether it came from
+        the cache). A map is kept EC_LOCATION_TTL_S; a failed or empty
+        lookup only EC_LOCATION_RETRY_S, as lookup_volume_locations keeps
+        its empty answers, so that a master that answers again is asked
+        again. `refresh` skips the cache."""
         now = time.time()
-        cached = self._ec_loc_cache.get(vid)
+        cached = None if refresh else self._ec_loc_cache.get(vid)
         if cached and cached[0] > now:
-            return cached[1]
+            return cached[1], True
         out: dict[int, list[str]] = {}
         try:
             stub = rpc.master_stub(self.master_grpc)
@@ -835,8 +865,9 @@ class VolumeServer:
                 out[sl.shard_id] = [l.url for l in sl.locations]
         except grpc.RpcError as e:
             glog.v(1, f"LookupEcVolume {vid}: {e.code()}")
-        self._ec_loc_cache[vid] = (now + 10.0, out)
-        return out
+        ttl = EC_LOCATION_TTL_S if out else EC_LOCATION_RETRY_S
+        self._ec_loc_cache[vid] = (now + ttl, out)
+        return out, False
 
     # -- replication (topology/store_replicate.go:24) ----------------------
 

@@ -1,5 +1,5 @@
 # the command modules of the port; `deferred` registers the reference's
-# remote.*, s3.* and mq.* commands, each failing with its ROADMAP.md item
+# remote.* and mq.* commands, each failing with its ROADMAP.md item
 from . import (  # noqa: F401
     cluster,
     collection,
@@ -8,6 +8,7 @@ from . import (  # noqa: F401
     fs,
     lock,
     qos_cmd,
+    s3,
     trace_cmd,
     volume,
 )

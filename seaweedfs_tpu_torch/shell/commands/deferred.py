@@ -1,14 +1,13 @@
 """The reference's shell commands that stand on parts the port does not
-carry yet: remote storage (`remote.*`), the S3 gateway (`s3.*`) and the
-MQ broker (`mq.*`). Each fails, naming the ROADMAP.md item that will
-port it, so that none reads as an unknown command."""
+carry yet: remote storage (`remote.*`) and the MQ broker (`mq.*`). Each
+fails, naming the ROADMAP.md item that will port it, so that none reads
+as an unknown command."""
 
 from __future__ import annotations
 
 from ..registry import command
 
 ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
-ROADMAP_S3 = "ROADMAP.md A2d (S3 gateway)"
 ROADMAP_GATEWAYS = "ROADMAP.md A2d (other gateways)"
 
 DEFERRED = {
@@ -16,10 +15,6 @@ DEFERRED = {
         "remote.configure", "remote.mount", "remote.unmount",
         "remote.meta.sync", "remote.cache", "remote.uncache",
         "remote.mount.buckets")},
-    **{name: ROADMAP_S3 for name in (
-        "s3.bucket.list", "s3.bucket.create", "s3.bucket.delete",
-        "s3.configure", "s3.bucket.quota", "s3.bucket.quota.check",
-        "s3.circuitbreaker", "s3.clean.uploads")},
     "mq.topic.list": ROADMAP_GATEWAYS,
 }
 

@@ -54,6 +54,17 @@ def repl(env) -> None:
         run_command(env, line)
 
 
+def kv_flags(args) -> dict:
+    """Shared '-k=v' / bare '-flag' parser for simple commands (richer
+    commands use argparse)."""
+    out = {}
+    for a in args:
+        if a.startswith("-"):
+            k, _, v = a[1:].partition("=")
+            out[k] = v
+    return out
+
+
 _DURATION_UNITS = {"s": 1, "m": 60, "h": 3600, "d": 86400}
 
 
@@ -73,13 +84,3 @@ def parse_duration(spec: str, *, flag: str = "duration") -> float:
 # importing the command modules registers them
 from . import commands  # noqa: E402,F401
 
-
-def kv_flags(args) -> dict:
-    """Shared '-k=v' / bare '-flag' parser for simple commands (richer
-    commands use argparse)."""
-    out = {}
-    for a in args:
-        if a.startswith("-"):
-            k, _, v = a[1:].partition("=")
-            out[k] = v
-    return out

@@ -193,10 +193,13 @@ class EcStreamDestination:
             if item is None:
                 break
             sid, off, data, crc = item
+            # off the queue, so out of flight: counted down before the
+            # yield, which never returns when the call dies there (_drain
+            # sees only the slabs still queued)
+            EC_STREAM_INFLIGHT_BYTES.dec(len(data))
             yield es.VolumeEcShardsStreamRequest(slab=es.EcStreamSlab(
                 shard_id=sid, offset=off, data=data, crc=crc))
             self.bytes_streamed += len(data)
-            EC_STREAM_INFLIGHT_BYTES.dec(len(data))
             EC_STREAM_BYTES.inc(len(data), role="source", phase="live")
             EC_STREAM_SLABS.inc(role="source", phase="live")
         if self._failed is not None:

@@ -760,3 +760,44 @@ def test_a_port_source_resumes_a_flapped_ref_destination(wire, same_package,
     share = shard_size * len(WIRE_SHARDS)
     assert 0 < t.resumed_bytes <= share - TEST_GEO.large_block, (
         t.resumed_bytes, share)
+
+
+# -- the inflight gauge when a stream dies ---------------------------------------
+
+
+class _DiesAfterFirstSlab:
+    """A stand-in for a destination's stub: the call takes the header and
+    one slab off the request iterator, then fails as a dropped stream
+    does."""
+
+    def __init__(self):
+        self.taken = []
+
+    def VolumeEcShardsStream(self, requests_, timeout=None):
+        self.taken.append(next(requests_))  # the header
+        self.taken.append(next(requests_))  # the first slab
+        raise grpc.RpcError("stream reset by peer")
+
+
+def test_a_dead_stream_leaves_no_bytes_in_flight(monkeypatch, tmp_path):
+    """Every slab taken off the queue leaves SeaweedFS_ec_stream_inflight_
+    bytes exactly once, even when the call dies at the slab's yield; the
+    slabs still queued leave it through _drain. Six 4 KiB wire chunks go
+    in; the stub takes one and fails; the gauge ends where it began."""
+    stub = _DiesAfterFirstSlab()
+    monkeypatch.setattr(rpc, "volume_stub", lambda address: stub)
+    start = stats.EC_STREAM_INFLIGHT_BYTES.value()
+    dest = ec_stream.EcStreamDestination(
+        "127.0.0.1:1", 7, "", [0, 1], str(tmp_path / "7"), TEST_GEO,
+        shard_size=6 * 4096)
+    dest._chunk = 4096
+    rng = np.random.default_rng(5)
+    for off in range(0, 3 * 4096, 4096):
+        for sid in (0, 1):
+            dest.put(sid, off, rng.integers(0, 256, 4096,
+                                            dtype=np.uint8).tobytes())
+    dest._thread.join(timeout=30)
+    assert not dest._thread.is_alive()
+    assert dest._failed is not None
+    assert len(stub.taken) == 2 and stub.taken[1].HasField("slab")
+    assert stats.EC_STREAM_INFLIGHT_BYTES.value() == start

@@ -1147,10 +1147,12 @@ def test_a_remote_entry_answers_naming_its_item(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["s3"], ["filer.sync", "-a", "x", "-b", "y"], ["filer.replicate"],
+    ["iam"], ["filer.sync", "-a", "x", "-b", "y"], ["filer.replicate"],
     ["filer.backup"], ["filer.meta.backup"], ["filer.remote.sync"],
-    ["webdav"], ["mount"], ["benchmark"], ["filer", "-store", "redis"],
-    ["-v", "1", "s3"], ["-vmodule", "filer=1", "benchmark"],
+    ["webdav"], ["mount"], ["benchmark", "-nativeClient"],
+    ["filer", "-store", "redis"], ["-v", "1", "iam"],
+    ["-vmodule", "filer=1", "benchmark", "-filer", "x"], ["mq.broker"],
+    ["benchmark", "-filer", "127.0.0.1:1"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
 def test_cli_commands_not_ported_refuse_at_start(argv, tmp_path):
     if argv[0] == "filer":
@@ -1161,7 +1163,9 @@ def test_cli_commands_not_ported_refuse_at_start(argv, tmp_path):
 
 
 @pytest.mark.parametrize("line", sorted(SHELL_DEFERRED) + [
-    "mount.configure -dir=/m -quotaMB=1"])
+    "mount.configure -dir=/m -quotaMB=1", "volume.tier.upload -volumeId=1",
+    "volume.tier.download -volumeId=1", "volume.tier.move",
+    "cluster.raft.add -id=127.0.0.1:2", "cluster.raft.remove -id=127.0.0.1:2"])
 def test_shell_commands_not_ported_name_their_item(line):
     out = io.StringIO()
     env = CommandEnv("127.0.0.1:1", filer="127.0.0.1:1")

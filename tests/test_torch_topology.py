@@ -603,8 +603,9 @@ def test_the_port_shell_registers_the_reference_commands_it_ports():
     ported = {n for n in REF_COMMANDS
               if n.split(".")[0] in ("volume", "volumeServer", "ec", "lock",
                                      "unlock", "cluster", "collection",
-                                     "qos", "trace", "fs")}
+                                     "qos", "trace", "fs", "s3")}
     assert ported <= set(COMMANDS) <= set(REF_COMMANDS)
-    # the remote.*, s3.* and mq.* commands are registered only to refuse
-    assert not [n for n in COMMANDS if n.startswith(("remote.", "s3.", "mq."))
+    # the remote.* and mq.* commands are registered only to refuse
+    assert not [n for n in COMMANDS if n.startswith(("remote.", "mq."))
                 and n not in DEFERRED]
+    assert not [n for n in COMMANDS if n.startswith("s3.") and n in DEFERRED]
