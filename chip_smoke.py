@@ -118,7 +118,7 @@ and prints no result without them. Phases, each printing its own line:
                      K1) in racks r0, r0, r1, r1, all started at once.
                      `shell` volume.grow of one volume of collection c1
                      with replication 001; 8 clients write seeded 1-64 KiB
-                     needles through operation.submit until it holds 512
+                     needles through operation.submit until it holds 256
                      MiB of needle bytes (both replicas hold every one); a
                      seeded 10% deleted through the primary, then
                      `volume.vacuum -garbageThreshold 0.05` (both replicas
@@ -214,20 +214,20 @@ and prints no result without them. Phases, each printing its own line:
                      it lacks) the same WFS operations in this process
                      through the path operations the FUSE callbacks make
                      (mount.PathOps), with its control socket. Before the
-                     encode: through the mount 200 files of 1-64 KiB in 6
+                     encode: through the mount 100 files of 1-64 KiB in 6
                      directories and one of 24 MiB, a rename, a symlink,
                      a hard link and a user xattr, and `mount.configure
                      -quotaMB=1` through `shell -filer` (a write past it
-                     ENOSPC), lifted again; through WebDAV 200 files by 8
+                     ENOSPC), lifted again; through WebDAV 100 files by 8
                      clients and a 24 MiB chunked PUT, PROPFIND of each
                      directory, MKCOL, MOVE, COPY, a LOCK that refuses a
-                     PUT without its token, UNLOCK; through FTP 60 files
+                     PUT without its token, UNLOCK; through FTP 30 files
                      and one of 16 MiB in passive mode, LIST; IAM
                      (SigV4-signed by the S3 step's Admin identity)
                      CreateUser, CreateAccessKey, PutUserPolicy,
                      ListUsers, the identity pushed to the S3 gateway: a
                      PUT and a GET with the new key, a PUT with it 403
-                     once deleted; MQ: 10,000 records of 100-1,000 B on
+                     once deleted; MQ: 4,000 records of 100-1,000 B on
                      one topic of 4 partitions, half through the broker's
                      gRPC Publish, half through its HTTP API, a
                      subscription of each partition from offset 0 in
@@ -240,7 +240,43 @@ and prints no result without them. Phases, each printing its own line:
                      (RETR), those with a chunk on a lost shard timed
                      apart, K1 at R = 4 in those reads; every gateway
                      process exits 0 on SIGINT or SIGTERM without jax in
-                     sys.modules
+                     sys.modules.
+                     The filer's tools in the same fleet: a second
+                     filer, B (-collection fc, its own sqlite store),
+                     started from a directory whose notification.toml
+                     enables kafka at a FakeKafkaBroker in this process
+                     (tests/fake_kafka.py, loaded by its path);
+                     `filer.sync -a A -b B -a.path /sync
+                     -isActiveActive`, `filer.replicate -sink local`,
+                     `filer.meta.tail -pathPrefix /sync` and
+                     `filer.meta.backup` as processes, following A
+                     before the writes. Before the encode: 150 files of
+                     1-64 KiB and one of 24 MiB PUT to A's /sync by 8
+                     clients, filer.meta.backup SIGTERMed and started
+                     again, 20 files to B's /sync, a rename across
+                     directories and a delete on A; both filers and the
+                     local sink converge on the same tree, every file
+                     byte-exact on both, each path made once on each
+                     filer (no event looped); `filer.copy` of a local
+                     directory of 50 files and `filer.cat` of the 24 MiB
+                     file byte-exact; a local directory of 100 files of
+                     1-64 KiB and one of 24 MiB as remote storage
+                     (`shell -filer` remote.configure, remote.mount, 20
+                     files read through the filer, remote.cache of
+                     every file, remote.uncache of 10, 5 changed on the
+                     remote and `filer.remote.sync -dir /remote`, their
+                     new bytes read back); the broker holds exactly B's
+                     events, then one message per entry of B's /sync
+                     from `fs.meta.notify /sync` run in B's directory.
+                     After the SIGKILL: `filer.backup` of A's /sync and
+                     /remote byte-exact (uncached files as the remote
+                     holds them), B's /sync through B and the cached
+                     /remote files through A by 8 readers, those with a
+                     chunk on a lost shard timed apart, K1 at R = 4 in
+                     those reads; filer.meta.backup's records each of
+                     A's events once across its restart, filer.meta.tail
+                     every /sync event since it started; every tool
+                     process and filer B exit 0 on SIGTERM without jax
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
 pipeline phases (a short loop for one kernel; K1's are pipeline, store,
@@ -262,6 +298,7 @@ last lines are one JSON object of kernel numbers, the nvidia-smi line, and
 from __future__ import annotations
 
 import argparse
+import collections
 import errno
 import hashlib
 import http.client
@@ -274,6 +311,7 @@ import signal
 import socket
 import stat
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2037,7 +2075,7 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 # -- cluster --------------------------------------------------------------------
 
 
-CLUSTER_VOLUME_MB = 512  # needle bytes: the .dat stays under the limit
+CLUSTER_VOLUME_MB = 256  # needle bytes: the .dat stays under the limit
 CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
 CLUSTER_SMALL_MB = 128  # config #5's collection
 CLUSTER_MULTI = 4  # config #4: volumes streamed at once (-parallelEncode)
@@ -2060,6 +2098,9 @@ class _Fleet:
                     if k not in ("SEAWEEDFS_TORCH_KERNEL",
                                  "SEAWEEDFS_TORCH_CODER")}
         self.env["SWFS_SCRUB_MAX_MBPS"] = "0"  # unpaced scrub
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            [HERE] + [p for p in self.env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
         self.procs: dict[str, tuple] = {}  # name -> (proc, log, port, dir)
         self.rack_of: dict[str, str] = {}  # volume server address -> rack
         self.master_port = _free_port_pair()
@@ -2067,14 +2108,16 @@ class _Fleet:
         self.k1_gone: dict[int, int] = {}  # K1 by R of killed servers
 
     def _spawn(self, name: str, args: list[str], port: int, d: str,
-               env: dict | None = None, modules: str = ""):
+               env: dict | None = None, modules: str = "",
+               cwd: str = HERE):
         """`modules`: a file the process writes its sys.modules to as it
-        exits."""
+        exits; `cwd`: its working directory (the port is found from any,
+        through PYTHONPATH)."""
         log_f = open(os.path.join(self.root, f"{name}.log"), "wb")
         cmd = ([sys.executable, "-c", _MODULES_WRAPPER, modules] if modules
                else [sys.executable, "-m", "seaweedfs_tpu_torch"])
         proc = subprocess.Popen(
-            cmd + args, cwd=HERE, env={**self.env, **(env or {})},
+            cmd + args, cwd=cwd, env={**self.env, **(env or {})},
             stdout=log_f, stderr=subprocess.STDOUT)
         self.procs[name] = (proc, log_f, port, d)
 
@@ -2175,15 +2218,16 @@ class _Fleet:
                                      f"{sorted(want)}")
             time.sleep(0.2)
 
-    def shell(self, *lines: str, filer: str = "") -> tuple[str, float]:
+    def shell(self, *lines: str, filer: str = "",
+              cwd: str = HERE) -> tuple[str, float]:
         """Commands through `python3 -m seaweedfs_tpu_torch shell` on
-        stdin (with `-filer` when given); -> (output, seconds). A command
-        that fails fails the run."""
+        stdin (with `-filer` when given, from `cwd`); -> (output,
+        seconds). A command that fails fails the run."""
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
              "-master", self.master] + (["-filer", filer] if filer else []),
-            cwd=HERE, env=self.env,
+            cwd=cwd, env=self.env,
             input="\n".join(lines) + "\n", capture_output=True, text=True,
             timeout=CLUSTER_CALL_S)
         wall = time.perf_counter() - t0
@@ -2568,7 +2612,7 @@ def _multi_stream(phase: str, fleet: _Fleet, rng, payload: bytes,
 def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The operator's path through a cluster of processes on the card
     (see the module docstring); -> K1's launches. Which encode runs
-    where: the 512 MiB volume of c1 and the four volumes of c4 take the
+    where: the 256 MiB volume of c1 and the four volumes of c4 take the
     default, streamed path (VolumeEcShardsGenerateStreamed on each source,
     K1 there while the shards stream); the RS(6,3) volume of c5 the copy
     path (`-stream 0`: VolumeEcShardsGenerate, then VolumeEcShardsCopy)."""
@@ -3393,16 +3437,16 @@ def _s3_reads(phase: str, fleet: _Fleet, sport: int, faddr: str, s3w: dict,
 
 # -- the other gateways (webdav, ftp, iam, mq.broker, mount) -------------------
 
-GW_FILES = 200  # files of 1-64 KiB through mount and through WebDAV
+GW_FILES = 100  # files of 1-64 KiB through mount and through WebDAV
 GW_DIRS = 6
 GW_LARGE_MIB = 24  # one file through mount (past its 16 MiB budget), WebDAV
-GW_FTP_FILES = 60
+GW_FTP_FILES = 30
 GW_FTP_LARGE_MIB = 16
 GW_MOUNT_MEMORY_MB = 16
 GW_PASSIVE = 40  # the FTP gateway's passive ports
 GW_IAM_USER = "gw-user"
 MQ_TOPIC = ("gw", "events")
-MQ_RECORDS = 10_000  # of 100-1,000 B, half through gRPC, half through HTTP
+MQ_RECORDS = 4_000  # of 100-1,000 B, half through gRPC, half through HTTP
 MQ_PARTITIONS = 4
 MQ_RING = 4096  # a segment's partition is one range of this ring
 GW_NAMES = ("webdav", "ftp", "iam", "mq", "mount")
@@ -4293,6 +4337,567 @@ def _gateway_reads(phase: str, gw: _Gateways, files: _FilerFiles,
     return dict(ms=ms, k1=reads_k1)
 
 
+FT_FILES = 150  # files of 1-64 KiB PUT to filer A's /sync by 8 clients
+FT_DIRS = 4
+FT_LARGE_MIB = 24  # one file of /sync, one of the remote
+FT_B_FILES = 20  # files written on filer B's /sync
+FT_COPY_FILES = 50  # a local directory through filer.copy
+FT_REMOTE_FILES = 100  # files of 1-64 KiB on the local-directory remote
+FT_READ_THROUGH = 20  # of them read through before remote.cache
+FT_UNCACHE = 10
+FT_CHANGED = 5
+FT_TOPIC = "seaweedfs_filer"
+FT_PARTITIONS = 3
+FT_IDLE_S = 3.0  # a metadata stream idle this long has nothing more
+FT_CONVERGE_S = 300
+FT_TOOLS = ("filer.sync", "filer.replicate", "filer.meta.tail",
+            "filer.meta.backup")
+
+
+def _fake_kafka_broker():
+    """tests/fake_kafka.py's FakeKafkaBroker, loaded by its file path (the
+    module imports only the standard library; neither tests/__init__.py
+    nor conftest.py runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fake_kafka", os.path.join(HERE, "tests", "fake_kafka.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FakeKafkaBroker(topic=FT_TOPIC, partitions=FT_PARTITIONS)
+
+
+def _events(address: str, prefix: str, since_ns: int = 0) -> list:
+    """A filer's metadata events under `prefix` after `since_ns`, until
+    its stream stays idle FT_IDLE_S."""
+    import grpc
+
+    from seaweedfs_tpu_torch.pb import filer_pb2
+
+    out = []
+    stub = rpc.filer_stub(rpc.grpc_address(address))
+    stream = stub.SubscribeMetadata(filer_pb2.SubscribeMetadataRequest(
+        client_name="chip_smoke", path_prefix=prefix, since_ns=since_ns))
+    last = [time.perf_counter()]
+
+    def watchdog():
+        while stream.is_active():
+            if time.perf_counter() - last[0] > FT_IDLE_S:
+                stream.cancel()
+                return
+            time.sleep(0.2)
+
+    threading.Thread(target=watchdog, daemon=True).start()
+    try:
+        for resp in stream:
+            out.append(resp)
+            last[0] = time.perf_counter()
+    except grpc.RpcError as e:
+        if e.code() != grpc.StatusCode.CANCELLED:
+            raise
+    return out
+
+
+def _event_path(resp) -> str:
+    """The path a filer's publisher keys an event by: the new entry's,
+    else the old one's."""
+    ev = resp.event_notification
+    if ev.new_entry.name:
+        return ((ev.new_parent_path or resp.directory).rstrip("/") + "/"
+                + ev.new_entry.name)
+    return resp.directory.rstrip("/") + "/" + ev.old_entry.name
+
+
+def _tree_of(address: str, top: str) -> dict[str, int]:
+    """{path: size} of every file under `top` (directories: -1), through
+    the filer's gRPC listing."""
+    out = {}
+    for e in _filer_entries(address, top):
+        p = f"{top.rstrip('/')}/{e.name}"
+        if e.is_directory:
+            out[p] = -1
+            out.update(_tree_of(address, p))
+        else:
+            out[p] = max(e.attributes.file_size,
+                         max((c.offset + c.size for c in e.chunks),
+                             default=0), len(e.content))
+    return out
+
+
+def _local_files(root: str) -> dict[str, bytes]:
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            full = os.path.join(d, n)
+            with open(full, "rb") as f:
+                out["/" + os.path.relpath(full, root)] = f.read()
+    return out
+
+
+class _Tools:
+    """The filer-tools step's processes and what they must hold: filer B,
+    the fake Kafka broker B publishes to, filer.sync, filer.replicate,
+    filer.meta.tail and filer.meta.backup, all over filer A."""
+
+    def __init__(self, fleet: _Fleet, root: str, faddr: str, fenv: dict):
+        self.fleet = fleet
+        self.root = root
+        self.faddr = faddr
+        self.broker = _fake_kafka_broker()
+        self.bdir = os.path.join(root, "filer-b")
+        os.mkdir(self.bdir)
+        with open(os.path.join(self.bdir, "notification.toml"), "w") as f:
+            f.write(f'[notification.kafka]\nenabled = true\nhosts = '
+                    f'["{self.broker.addr}"]\ntopic = "{FT_TOPIC}"\n')
+        self.bport = _free_port_pair()
+        while self.bport == fleet.master_port or self.bport in fleet.ports():
+            self.bport = _free_port_pair()
+        self.modules = {}
+        # from its own directory, where its notification.toml is
+        self.spawn("filerB", ["filer", "-ip", "127.0.0.1", "-port",
+                              str(self.bport), "-master", fleet.master,
+                              "-dir", os.path.join(self.bdir, "store"),
+                              "-collection", FILER_COLLECTION],
+                   self.bport, fenv, cwd=self.bdir)
+        self.baddr = f"127.0.0.1:{self.bport}"
+        self.replica = os.path.join(root, "replica")
+        self.meta_backup = os.path.join(root, "meta.backup")
+
+    def spawn(self, name: str, args: list, port: int = 0,
+              env: dict | None = None, cwd: str = HERE) -> None:
+        self.modules[name] = os.path.join(self.root, f"{name}.modules")
+        self.fleet._spawn(name, args, port, "", env=env,
+                          modules=self.modules[name], cwd=cwd)
+
+    def start_tools(self) -> None:
+        a, b = self.faddr, self.baddr
+        self.spawn("filer.sync", ["filer.sync", "-a", a, "-b", b,
+                                  "-a.path", "/sync", "-isActiveActive"])
+        self.spawn("filer.replicate", ["filer.replicate", "-filer", a,
+                                       "-path", "/sync", "-sink", "local",
+                                       "-sink.dir", self.replica])
+        self.spawn("filer.meta.tail", ["filer.meta.tail", "-filer", a,
+                                       "-pathPrefix", "/sync"])
+        self.spawn("filer.meta.backup", ["filer.meta.backup", "-filer", a,
+                                         "-o", self.meta_backup])
+
+    def stop(self, name: str) -> int:
+        """SIGTERM: exit 0, neither jax nor seaweedfs_tpu in sys.modules;
+        -> its exit code."""
+        proc = self.fleet.procs[name][0]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        with open(self.modules[name]) as f:
+            mods = f.read().split("\n")
+        jax_mods = [m for m in mods if m in ("jax", "seaweedfs_tpu")
+                    or m.startswith(("jax.", "seaweedfs_tpu."))]
+        if rc != 0 or jax_mods or "seaweedfs_tpu_torch.command" not in mods:
+            raise AssertionError(f"{self.fleet.phase}: {name} exited {rc}; "
+                                 f"jax or seaweedfs_tpu modules {jax_mods}")
+        return rc
+
+    def tail_events(self) -> list:
+        """The events filer.meta.tail printed (its JSON lines)."""
+        from google.protobuf.json_format import ParseDict
+
+        from seaweedfs_tpu_torch.pb import filer_pb2
+
+        with open(os.path.join(self.root, "filer.meta.tail.log"), "rb") as f:
+            lines = f.read().decode(errors="replace").splitlines()
+        return [ParseDict(json.loads(x), filer_pb2.SubscribeMetadataResponse())
+                for x in lines if x.startswith("{")]
+
+    def broker_messages(self) -> list[tuple[bytes, bytes]]:
+        return [m for p in sorted(self.broker.messages)
+                for m in list(self.broker.messages[p])]
+
+    def close(self) -> None:
+        self.broker.close()
+
+
+def _tool(phase: str, fleet: _Fleet, *args: str, cwd: str = HERE
+          ) -> tuple[bytes, float]:
+    """One run of `python3 -m seaweedfs_tpu_torch <args>` to its end:
+    exit 0 or the run fails; -> (stdout, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                        *args], cwd=cwd, env=fleet.env, capture_output=True,
+                       timeout=CLUSTER_CALL_S)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: {args[0]} exited {r.returncode}:\n"
+                             f"{r.stderr.decode(errors='replace')[-4000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def _wait_until(phase: str, what: str, ok, timeout: float = FT_CONVERGE_S
+                ) -> float:
+    t0 = time.perf_counter()
+    while not ok():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{phase}: {what} not within {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def _put_each(phase: str, port: int, items: dict, payload: bytes) -> float:
+    """PUT {path: (start, size)} slices of `payload` by 8 clients;
+    -> seconds."""
+    def put(conn, path):
+        a, n = items[path]
+        conn.request("PUT", path, body=payload[a:a + n],
+                     headers={"Content-Length": str(n)})
+        r = conn.getresponse()
+        r.read()
+        if r.status != 201:
+            raise AssertionError(f"{phase}: PUT {path}: {r.status}")
+
+    t0 = time.perf_counter()
+    _clients(port, put, sorted(items))
+    return time.perf_counter() - t0
+
+
+def _get_each_file(phase: str, port: int, want: dict) -> dict[str, float]:
+    """GET every {path: bytes} by 8 readers, byte-exact; -> seconds of
+    each."""
+    def get(conn, path):
+        t0 = time.perf_counter()
+        st, body = _http(conn, "GET", path)
+        dt = time.perf_counter() - t0
+        if st != 200 or body != want[path]:
+            raise AssertionError(f"{phase}: GET {path} on :{port}: {st}, "
+                                 f"{len(body)} B, not the bytes written")
+        return dt
+
+    paths = sorted(want)
+    return dict(zip(paths, _clients(port, get, paths)))
+
+
+def _tools_writes(phase: str, fleet: _Fleet, tools: _Tools,
+                  files: _FilerFiles, rng, smi: str) -> dict:
+    """The filer-tools step before the encode (see the module
+    docstring); -> what the reads after the loss need."""
+    t_step = time.perf_counter()
+    payload = files.payload
+    aport = fleet.port_of(tools.faddr)
+    fleet.wait_up(["filerB"])
+    rpc.reset_channels()
+    tools.start_tools()
+    # until filer.replicate and filer.meta.tail follow A's stream: a
+    # marker file seen by both, then deleted
+    marker, n = "/sync/.ready", [0]
+
+    def following() -> bool:
+        n[0] += 1
+        conn = http.client.HTTPConnection("127.0.0.1", aport, timeout=60)
+        try:
+            _http(conn, "PUT", marker, f"ready {n[0]}".encode())
+        finally:
+            conn.close()
+        time.sleep(0.5)
+        with open(os.path.join(tools.root, "filer.meta.tail.log"), "rb") as f:
+            tailed = b'"name": ".ready"' in f.read()
+        return tailed and os.path.exists(os.path.join(tools.replica,
+                                                      ".ready"))
+
+    up_s = _wait_until(phase, "filer.replicate and filer.meta.tail", following,
+                       120)
+    conn = http.client.HTTPConnection("127.0.0.1", aport, timeout=60)
+    try:
+        if _http(conn, "DELETE", marker)[0] not in (200, 202, 204):
+            raise AssertionError(f"{phase}: DELETE {marker}")
+    finally:
+        conn.close()
+    t_writes = time.time_ns()
+
+    # 1. /sync on A by 8 clients; filer.meta.backup stopped once and
+    # started again; /sync on B; a rename and a delete on A
+    a_set = _gw_set(rng, len(payload), "/sync", FT_FILES, FT_LARGE_MIB,
+                    FT_DIRS)
+    a_s = _put_each(phase, aport, a_set, payload)
+    tools.stop("filer.meta.backup")
+    tools.spawn("filer.meta.backup2", ["filer.meta.backup", "-filer",
+                                       tools.faddr, "-o", tools.meta_backup])
+    b_set = {f"/sync/b/d{i % 2}/g{i:03d}": (
+        int(rng.integers(0, len(payload) - 65536)),
+        int(rng.integers(1, 65537))) for i in range(FT_B_FILES)}
+    b_s = _put_each(phase, tools.bport, b_set, payload)
+    want = {p: payload[a:a + n] for p, (a, n) in {**a_set, **b_set}.items()}
+    src, dst = "/sync/d0/f0000", "/sync/d1/renamed"
+    from seaweedfs_tpu_torch.pb import filer_pb2
+
+    rpc.filer_stub(rpc.grpc_address(tools.faddr)).AtomicRenameEntry(
+        filer_pb2.AtomicRenameEntryRequest(
+            old_directory="/sync/d0", old_name="f0000",
+            new_directory="/sync/d1", new_name="renamed"), timeout=120)
+    want[dst] = want.pop(src)
+    conn = http.client.HTTPConnection("127.0.0.1", aport, timeout=60)
+    try:
+        if _http(conn, "DELETE", "/sync/d2/f0002")[0] not in (200, 202, 204):
+            raise AssertionError(f"{phase}: DELETE /sync/d2/f0002")
+    finally:
+        conn.close()
+    del want["/sync/d2/f0002"]
+    written = len(a_set) + len(b_set)
+
+    # 2. both filers and the local sink converge on the same tree
+    sizes = {p: len(b) for p, b in want.items()}
+
+    def files_of(tree):
+        return {p: z for p, z in tree.items() if z >= 0}
+
+    t0 = time.perf_counter()
+    converge_s = _wait_until(phase, "filer.sync's two trees", lambda: all(
+        files_of(_tree_of(addr, "/sync")) == sizes
+        for addr in (tools.faddr, tools.baddr)))
+    replica_s = _wait_until(phase, "filer.replicate's local tree", lambda: {
+        "/sync" + p: len(b) for p, b in _local_files(tools.replica).items()}
+        == sizes)
+    sync_s = time.perf_counter() - t0
+    a_ms = _get_each_file(phase, aport, want)
+    b_ms = _get_each_file(phase, tools.bport, want)
+    mirrored = _local_files(tools.replica)
+    if any(mirrored["/" + p[len("/sync/"):]] != b for p, b in want.items()):
+        raise AssertionError(f"{phase}: the local sink's bytes differ")
+    # no event looped: on each filer each path was created once
+    loops = {}
+    for name, addr in (("A", tools.faddr), ("B", tools.baddr)):
+        made: dict[str, int] = {}
+        for resp in _events(addr, "/sync", t_writes):
+            if resp.event_notification.new_entry.name:
+                p = _event_path(resp)
+                made[p] = made.get(p, 0) + 1
+        twice = {p: k for p, k in made.items() if k != 1 and p != marker}
+        extra = set(made) - set(a_set) - set(b_set) - {dst, marker}
+        if twice or extra:
+            raise AssertionError(f"{phase}: events looped on {name}: "
+                                 f"{twice}, unexpected {sorted(extra)[:5]}")
+        loops[name] = len(made)
+    log(phase, f"filer tools: filer B (-collection {FILER_COLLECTION}, "
+               f"kafka at a FakeKafkaBroker) and filer.sync -isActiveActive, "
+               f"filer.replicate -sink local, filer.meta.tail, "
+               f"filer.meta.backup following A in {up_s:.2f} s; "
+               f"{len(a_set)} files ({FT_FILES} of 1-64 KiB, one of "
+               f"{FT_LARGE_MIB} MiB) PUT to A's /sync by {SERVER_CLIENTS} "
+               f"clients in {a_s:.3f} s ({len(a_set) / a_s:.0f} files/s), "
+               f"filer.meta.backup SIGTERMed (exit 0) and started again, "
+               f"{len(b_set)} to B's /sync in {b_s:.3f} s, a rename across "
+               f"directories and a delete on A: both filers converged "
+               f"{converge_s:.2f} s after the last write "
+               f"({written / (a_s + b_s + converge_s):.0f} files/s written "
+               f"and synced), the local sink {replica_s:.2f} s later; every "
+               f"file byte-exact on A ({_ms(list(a_ms.values()))}), on B "
+               f"({_ms(list(b_ms.values()))}) and in the sink; each path "
+               f"made once on each filer (A {loops['A']}, B {loops['B']}: "
+               f"no event looped); nvidia-smi: {smi}")
+
+    # 3. filer.copy of a local directory; filer.cat of the large file
+    copy_dir = os.path.join(tools.root, "copy-src")
+    copied = {}
+    for i in range(FT_COPY_FILES):
+        a, n = int(rng.integers(0, len(payload) - 65536)), int(
+            rng.integers(1, 65537))
+        rel = f"c{i % 5}/x{i:03d}"
+        os.makedirs(os.path.join(copy_dir, f"c{i % 5}"), exist_ok=True)
+        with open(os.path.join(copy_dir, rel), "wb") as f:
+            f.write(payload[a:a + n])
+        copied[f"/copied/{rel}"] = payload[a:a + n]
+    out, copy_s = _tool(phase, fleet, "filer.copy", "-filer", tools.faddr,
+                        copy_dir, "/copied")
+    if out.decode().strip() != f"copied {FT_COPY_FILES} files to /copied":
+        raise AssertionError(f"{phase}: filer.copy said {out!r}")
+    _get_each_file(phase, aport, copied)
+    out, cat_s = _tool(phase, fleet, "filer.cat", "-filer", tools.faddr,
+                       "/sync/large.bin")
+    if out != want["/sync/large.bin"]:
+        raise AssertionError(f"{phase}: filer.cat gave {len(out)} B, not "
+                             f"the bytes written")
+    log(phase, f"filer.copy of {FT_COPY_FILES} local files in "
+               f"{copy_s:.2f} s, each byte-exact through A; filer.cat of "
+               f"/sync/large.bin ({FT_LARGE_MIB} MiB) byte-exact in "
+               f"{cat_s:.2f} s; nvidia-smi: {smi}")
+
+    # 4. remote storage: a local directory mounted, read through, cached,
+    # partly uncached, changed, synced again
+    rdir = os.path.join(tools.root, "remote-src")
+    r_set = _gw_set(rng, len(payload), "", FT_REMOTE_FILES, FT_LARGE_MIB,
+                    FT_DIRS)
+    remote = {}
+    for p, (a, n) in r_set.items():
+        full = os.path.join(rdir, p.lstrip("/"))
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        with open(full, "wb") as f:
+            f.write(payload[a:a + n])
+        remote[p] = payload[a:a + n]
+    _, conf_s = fleet.shell(f"remote.configure -name=r1 -type=local "
+                            f"-root={rdir}", "remote.mount -dir=/remote "
+                            f"-remote=r1", filer=tools.faddr)
+    small = sorted(p for p in remote if p != "/large.bin")
+    through = {f"/remote{p}": remote[p] for p in small[:FT_READ_THROUGH]}
+    through_ms = _get_each_file(phase, aport, through)
+    out, cache_s = fleet.shell(*[f"remote.cache -dir=/remote{p}"
+                                 for p in sorted(remote)], filer=tools.faddr)
+    if out.count("cached ") != len(remote):
+        raise AssertionError(f"{phase}: remote.cache said:\n{out[-2000:]}")
+    uncached = small[:FT_UNCACHE]
+    changed = small[FT_UNCACHE:FT_UNCACHE + FT_CHANGED]
+    _, uncache_s = fleet.shell(*[f"remote.uncache -dir=/remote{p}"
+                                 for p in uncached], filer=tools.faddr)
+    for i, p in enumerate(changed):
+        a = int(rng.integers(0, len(payload) - 65536))
+        remote[p] = payload[a:a + len(remote[p]) + 1 + i]
+        full = os.path.join(rdir, p.lstrip("/"))
+        with open(full, "wb") as f:
+            f.write(remote[p])
+        os.utime(full, (time.time() + 60, time.time() + 60))
+    out, resync_s = _tool(phase, fleet, "filer.remote.sync", "-filer",
+                          tools.faddr, "-dir", "/remote")
+    if out.decode().strip() != f"synced {FT_CHANGED} entries":
+        raise AssertionError(f"{phase}: filer.remote.sync said {out!r}")
+    _get_each_file(phase, aport, {f"/remote{p}": remote[p] for p in changed})
+    entries = {p: e for p, e in (
+        (f"{d}/{e.name}", e) for d in {"/remote" + p.rsplit("/", 1)[0]
+                                       for p in remote}
+        for e in _filer_entries(tools.faddr, d.rstrip("/") or "/"))}
+    cached = sorted(p for p in remote if entries[f"/remote{p}"].chunks)
+    if set(cached) != set(remote) - set(uncached) - set(changed):
+        raise AssertionError(f"{phase}: {len(cached)} remote files cached, "
+                             f"not the {len(remote) - FT_UNCACHE - FT_CHANGED}"
+                             f" kept")
+    log(phase, f"remote storage (a local directory of {FT_REMOTE_FILES} "
+               f"files of 1-64 KiB and one of {FT_LARGE_MIB} MiB): shell "
+               f"-filer A remote.configure + remote.mount in {conf_s:.2f} "
+               f"s; {FT_READ_THROUGH} files read through the filer "
+               f"byte-exact ({_ms(list(through_ms.values()))}); "
+               f"remote.cache of every file {cache_s:.2f} s; remote.uncache "
+               f"of {FT_UNCACHE} {uncache_s:.2f} s; {FT_CHANGED} changed on "
+               f"the remote, filer.remote.sync {resync_s:.2f} s (\"synced "
+               f"{FT_CHANGED} entries\", the others' cache kept), their new "
+               f"bytes read back; {len(cached)} files cached; nvidia-smi: "
+               f"{smi}")
+
+    # 5. fs.meta.notify from B's directory; the broker holds exactly B's
+    # events and then one message per entry of B's /sync
+    b_events = [r for r in _events(tools.baddr, "/")]
+    before = tools.broker_messages()
+
+    def key_value(key: bytes, value: bytes):
+        ev = filer_pb2.EventNotification.FromString(value)
+        return key, ev.SerializeToString(deterministic=True)
+
+    expected = sorted((_event_path(r).encode(),
+                       r.event_notification.SerializeToString(
+                           deterministic=True)) for r in b_events)
+    if sorted(key_value(k, v) for k, v in before) != expected:
+        raise AssertionError(f"{phase}: the broker holds {len(before)} "
+                             f"messages, not B's {len(expected)} events")
+    b_tree = _tree_of(tools.baddr, "/sync")
+    out, notify_s = fleet.shell("fs.meta.notify /sync", filer=tools.baddr,
+                                cwd=tools.bdir)
+    after = tools.broker_messages()
+    notified = sorted(k.decode() for k, _ in (
+        collections.Counter(after) - collections.Counter(before)).elements())
+    if f"notified {len(b_tree)} entries under /sync" not in out or \
+            len(after) - len(before) != len(b_tree) or \
+            notified != sorted(b_tree) or tools.broker.crc_failures:
+        raise AssertionError(f"{phase}: fs.meta.notify: {out!r}, "
+                             f"{len(after) - len(before)} messages for "
+                             f"{len(b_tree)} entries")
+    log(phase, f"Kafka: the broker holds exactly B's {len(expected)} events "
+               f"(expected {len(expected)}, received {len(before)}, by "
+               f"(key, value) over {FT_PARTITIONS} partitions, CRCs "
+               f"verified); fs.meta.notify /sync from shell -filer B in "
+               f"B's directory ({notify_s:.2f} s): {len(b_tree)} messages "
+               f"expected, {len(after) - len(before)} received; step "
+               f"{time.perf_counter() - t_step:.2f} s; nvidia-smi: {smi}")
+    return dict(want=want, remote=remote, rdir=rdir, cached=cached,
+                dirs_a={f"/remote{p}".rsplit("/", 1)[0] for p in cached},
+                dirs_b={p.rsplit("/", 1)[0] for p in want},
+                written_s=time.perf_counter() - t_step)
+
+
+def _tools_reads(phase: str, fleet: _Fleet, tools: _Tools, ftw: dict,
+                 touching: set, smi: str) -> dict:
+    """After the SIGKILL (4d): filer.backup of A's /sync and /remote, B's
+    /sync through B by 8 readers, the cached /remote files through A;
+    then every tool process and filer B SIGTERMed."""
+    t_step = time.perf_counter()
+    aport = fleet.port_of(tools.faddr)
+    k0 = fleet.k1()
+    backups = {}
+    for top in ("/sync", "/remote"):
+        target = os.path.join(tools.root, f"backup{top.replace('/', '-')}")
+        out, dt = _tool(phase, fleet, "filer.backup", "-filer", tools.faddr,
+                        "-path", top, "-target", target)
+        got = _local_files(target)
+        want = ({p[len("/sync"):]: b for p, b in ftw["want"].items()}
+                if top == "/sync" else _local_files(ftw["rdir"]))
+        if got != want:
+            bad = sorted(p for p in set(got) | set(want)
+                         if got.get(p) != want.get(p))
+            raise AssertionError(f"{phase}: filer.backup -path {top}: "
+                                 f"{len(bad)} files differ, e.g. {bad[:3]}")
+        backups[top] = (len(got), dt)
+    b_ms = _get_each_file(phase, tools.bport, ftw["want"])
+    r_ms = _get_each_file(phase, aport, {f"/remote{p}": ftw["remote"][p]
+                                         for p in ftw["cached"]})
+    k1 = fleet.k1()
+    reads_k1 = _k1_step(k0, k1)
+    split = {}
+    for name, ms, key in (("B's /sync", b_ms, lambda p: "B:" + p),
+                          ("cached /remote", r_ms, lambda p: p)):
+        split[name] = ([t for p, t in ms.items() if key(p) in touching],
+                       [t for p, t in ms.items() if key(p) not in touching])
+    # every tool, then filer B
+    for name in ("filer.sync", "filer.replicate", "filer.meta.tail",
+                 "filer.meta.backup2", "filerB"):
+        tools.stop(name)
+    # filer.meta.backup's records: each of A's events once, across its
+    # restart
+    from seaweedfs_tpu_torch.pb import filer_pb2
+
+    with open(tools.meta_backup, "rb") as f:
+        blob = f.read()
+    ts, off = [], 0
+    while off < len(blob):
+        (n,) = struct.unpack_from(">I", blob, off)
+        ts.append(filer_pb2.SubscribeMetadataResponse.FromString(
+            blob[off + 4:off + 4 + n]).ts_ns)
+        off += 4 + n
+    a_ts = [r.ts_ns for r in _events(tools.faddr, "/")]
+    if off != len(blob) or len(set(ts)) != len(ts) or set(ts) != set(a_ts):
+        raise AssertionError(f"{phase}: filer.meta.backup holds {len(ts)} "
+                             f"records ({len(ts) - len(set(ts))} repeated) "
+                             f"of A's {len(a_ts)} events")
+    tailed = tools.tail_events()
+    first = tailed[0].ts_ns if tailed else 0
+    on_a = [r.ts_ns for r in _events(tools.faddr, "/sync", first - 1)]
+    if [r.ts_ns for r in tailed] != on_a:
+        raise AssertionError(f"{phase}: filer.meta.tail printed "
+                             f"{len(tailed)} events, A has {len(on_a)} "
+                             f"under /sync since")
+    log(phase, f"after the SIGKILL: filer.backup of A's /sync "
+               f"({backups['/sync'][0]} files, {backups['/sync'][1]:.2f} s) "
+               f"and /remote ({backups['/remote'][0]} files, uncached ones "
+               f"read through the remote, {backups['/remote'][1]:.2f} s) "
+               f"byte-exact; " + "; ".join(
+                   f"{name} by {SERVER_CLIENTS} readers: {len(d)} with a "
+                   f"chunk on a lost shard ({_ms(d)}), {len(r)} others "
+                   f"({_ms(r)})" for name, (d, r) in split.items())
+               + f"; K1 launches by R in these reads {reads_k1}; "
+                 f"filer.meta.backup holds each of A's {len(a_ts)} events "
+                 f"once across its restart, filer.meta.tail printed the "
+                 f"{len(tailed)} under /sync; filer.sync, filer.replicate, "
+                 f"filer.meta.tail, filer.meta.backup and filer B exit 0 "
+                 f"on SIGTERM, none with jax or seaweedfs_tpu "
+                 f"({time.perf_counter() - t_step:.2f} s); nvidia-smi: "
+                 f"{smi}")
+    if not reads_k1.get(4) or not all(d for d, _ in split.values()):
+        raise AssertionError(f"{phase}: the tools' reads after the loss "
+                             f"launched K1 by R {reads_k1}, or read no "
+                             f"file with a chunk on a lost shard")
+    return dict(split=split, k1=reads_k1)
+
+
 def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The filer as an operator runs it (see the module docstring):
     files written through its HTTP API, their volumes erasure-coded by
@@ -4307,7 +4912,7 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
     fleet = _Fleet(phase, root)
-    gw = None
+    gw = tools = None
     fdir = os.path.join(root, "filer-store")
     # the filer's chunk cache off: every GET below reaches the volume
     # servers, so that the degraded ones are K1's reconstructions
@@ -4327,6 +4932,7 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         fleet._spawn("s3", ["s3", "-port", str(sport), "-filer", faddr],
                      sport, "", modules=s3_modules)
         gw = _Gateways(fleet, root, faddr)
+        tools = _Tools(fleet, root, faddr, fenv)
         up_s = fleet.wait_up(["master", "filer", "s3"] +
                              [f"v{i}" for i in range(len(CLUSTER_RACKS))])
         gw.wait_up(["webdav", "ftp", "iam", "mq"]
@@ -4429,6 +5035,11 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         # 2c. the other gateways: mount, WebDAV, FTP, IAM, MQ
         gwr = _gateway_writes(phase, gw, files, rng, sport, s3w)
 
+        # 2d. the filer's tools: filer B, filer.sync, filer.replicate, the
+        # metadata tail and backup, filer.copy and filer.cat, remote
+        # storage, Kafka
+        ftw = _tools_writes(phase, fleet, tools, files, rng, smi)
+
         # 3. the shell's streamed ec.encode of every volume holding chunks
         vols = _filer_volumes(fleet)
         _wait_listed(fleet, vols)
@@ -4496,10 +5107,14 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         gw_dirs = {p.rsplit("/", 1)[0] for g in ("mount", "dav", "ftp")
                    for p in gwr[g]["items"]}
         for d in sorted({p.rsplit("/", 1)[0] for p in paths} | s3_dirs
-                        | gw_dirs):
+                        | gw_dirs | ftw["dirs_a"]):
             for e in _filer_entries(faddr, d):
                 chunks_of[f"{d}/{e.name}"] = [parse_file_id(c.file_id)
                                               for c in e.chunks]
+        for d in sorted(ftw["dirs_b"]):  # filer B's, keyed "B:<path>"
+            for e in _filer_entries(tools.baddr, d):
+                chunks_of[f"B:{d}/{e.name}"] = [parse_file_id(c.file_id)
+                                                for c in e.chunks]
         where_of = {}
         for vid, k in keep.items():
             ids, offs, sizes = idx.read_index_file(k + ".idx")
@@ -4552,6 +5167,10 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         dt = gw.stop("mq2")
         log(phase, f"the second broker SIGINT: exit 0 in {dt:.2f} s with "
                    f"its flush, no jax or seaweedfs_tpu in its sys.modules")
+
+        # 4d. the filer tools' backups and mirrors read back; every tool
+        # process and filer B SIGTERMed
+        ftr = _tools_reads(phase, fleet, tools, ftw, touching, smi)
 
         # the shell with -filer: fs.ls, fs.du, fs.cat, fs.verify
         t0 = time.perf_counter()
@@ -4638,7 +5257,12 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"loss: " + "; ".join(
                        f"{n} on a lost shard {_ms(v['deg'])}, others "
                        f"{_ms(v['rest'])}" for n, v in gwo["ms"].items())
-                   + f", K1 in them {gwo['k1']}; webdav, ftp and iam exit "
+                   + f", K1 in them {gwo['k1']}; the filer tools' step "
+                   f"{ftw['written_s']:.2f} s before the encode, its reads "
+                   f"after the loss: " + "; ".join(
+                       f"{n} on a lost shard {_ms(d)}, others {_ms(r)}"
+                       for n, (d, r) in ftr["split"].items())
+                   + f", K1 in them {ftr['k1']}; webdav, ftp and iam exit "
                    f"0 on SIGTERM, none with jax or seaweedfs_tpu; gf_xor "
                    f"by R over every server "
                    f"{dict(sorted(by_r.items()))}; phase wall "
@@ -4651,6 +5275,8 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     finally:
         if gw is not None:
             gw.close()
+        if tools is not None:
+            tools.close()
         fleet.close()
         rpc.reset_channels()
         shutil.rmtree(root)

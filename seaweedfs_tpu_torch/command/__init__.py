@@ -5,15 +5,19 @@ SeaweedFS weed/weed.go:47, weed/command/command.go:11-45). Run as
 Subcommands: master, volume, filer, s3, server (master + volume, and a
 filer with -filer, a filer and an S3 gateway with -s3, in one process),
 the gateways over a filer (webdav, ftp, iam, mq.broker, and mount or
-fuse, a FUSE mount), shell, upload, download, benchmark, version. The
-volume servers' erasure coder is the CUDA card by default (`-coder
-cuda`): without one they fail at start, and nothing falls back to the CPU
-unless `-coder cpu` (numpy) or `-coder native` (g++) asks for it. The
-filer's sync, replicate, backup and remote tools, the master's Raft group
-(`-peers`), the compiled benchmark client (`benchmark -filer`,
-`-nativeClient`) and the offline tools are not part of the port yet:
-their commands and flags fail at start, naming the ROADMAP.md item that
-will port them (`DEFERRED`).
+fuse, a FUSE mount), the filer's tools (filer.sync, filer.replicate,
+filer.backup, filer.cat, filer.copy, filer.meta.tail, filer.meta.backup,
+filer.remote.sync, filer.remote.gateway), shell, upload, download,
+benchmark, version. The volume servers' erasure coder is the CUDA card by
+default (`-coder cuda`): without one they fail at start, and nothing
+falls back to the CPU unless `-coder cpu` (numpy) or `-coder native`
+(g++) asks for it. The master's Raft group (`-peers`), the compiled
+benchmark client (`benchmark -filer`, `-nativeClient`) and the offline
+tools are not part of the port yet: their commands and flags fail at
+start, naming the ROADMAP.md item that will port them (`DEFERRED`).
+The tools that follow a filer's metadata stream run until SIGINT or
+SIGTERM, and then exit 0; a stream the filer drops is followed again from
+the last event.
 """
 
 from __future__ import annotations
@@ -24,18 +28,11 @@ import sys
 import threading
 
 ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
-ROADMAP_FILER_TOOLS = "ROADMAP.md A2d (filer tools)"
-ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
 ROADMAP_OFFLINE = "ROADMAP.md A2d (offline tools)"
 
 #: the reference's subcommands the port does not carry yet, each with
 #: the ROADMAP.md item that will port it
 DEFERRED = {
-    **{c: ROADMAP_FILER_TOOLS for c in (
-        "filer.sync", "filer.replicate", "filer.backup", "filer.cat",
-        "filer.copy", "filer.meta.tail", "filer.meta.backup")},
-    **{c: ROADMAP_REMOTE for c in ("filer.remote.sync",
-                                   "filer.remote.gateway")},
     "master.follower": ROADMAP_RAFT,
     **{c: ROADMAP_OFFLINE for c in ("backup", "compact", "fix", "export",
                                     "scaffold", "autocomplete",
@@ -150,7 +147,73 @@ def main(argv=None) -> int:
     shp = sub.add_parser("shell", help="admin shell (commands on stdin)")
     shp.add_argument("-master", default="localhost:9333")
     shp.add_argument("-filer", default="",
-                     help="filer address for the fs.* commands")
+                     help="filer address for fs.*/remote.* commands")
+
+    fsy = sub.add_parser("filer.sync",
+                         help="continuously sync between two filers")
+    fsy.add_argument("-a", required=True, help="source filer")
+    fsy.add_argument("-b", required=True, help="target filer")
+    fsy.add_argument("-a.path", dest="a_path", default="/")
+    fsy.add_argument("-b.path", dest="b_path", default=None,
+                     help="target path (defaults to -a.path)")
+    fsy.add_argument("-isActiveActive", action="store_true")
+
+    frp = sub.add_parser("filer.replicate",
+                         help="replicate filer events to a sink")
+    frp.add_argument("-filer", default="localhost:8888")
+    frp.add_argument("-path", default="/")
+    frp.add_argument("-sink", default="local",
+                     choices=["local", "filer", "s3", "gcs", "azure", "b2"])
+    frp.add_argument("-sink.dir", dest="sink_dir", default=None,
+                     help="local sink directory (default ./replica), or "
+                          "key prefix for the cloud sinks")
+    frp.add_argument("-sink.filer", dest="sink_filer", default="")
+    frp.add_argument("-sink.endpoint", dest="sink_endpoint", default="")
+    frp.add_argument("-sink.bucket", dest="sink_bucket", default="")
+    frp.add_argument("-sink.container", dest="sink_container", default="")
+    frp.add_argument("-sink.account", dest="sink_account", default="")
+    frp.add_argument("-sink.key", dest="sink_key", default="",
+                     help="azure shared key / gcs bearer token")
+    frp.add_argument("-sink.keyId", dest="sink_key_id", default="")
+    frp.add_argument("-sink.applicationKey", dest="sink_app_key",
+                     default="")
+
+    fbk = sub.add_parser("filer.backup",
+                         help="one-shot backup of a filer path to a "
+                              "local directory")
+    fbk.add_argument("-filer", default="localhost:8888")
+    fbk.add_argument("-path", default="/")
+    fbk.add_argument("-target", required=True)
+
+    frs = sub.add_parser("filer.remote.sync",
+                         help="sync remote-mounted directories")
+    frs.add_argument("-filer", default="localhost:8888")
+    frs.add_argument("-dir", required=True)
+
+    frg = sub.add_parser("filer.remote.gateway",
+                         help="continuously sync all remote mounts")
+    frg.add_argument("-filer", default="localhost:8888")
+    frg.add_argument("-interval", type=float, default=60.0)
+
+    fct = sub.add_parser("filer.cat", help="print a filer file to stdout")
+    fct.add_argument("-filer", default="localhost:8888")
+    fct.add_argument("path")
+
+    fcp = sub.add_parser("filer.copy", help="copy local files to the filer")
+    fcp.add_argument("-filer", default="localhost:8888")
+    fcp.add_argument("files", nargs="+",
+                     help="local files/dirs, last arg is the filer dest dir")
+
+    fmt_ = sub.add_parser("filer.meta.tail",
+                          help="stream filer metadata events as JSON lines")
+    fmt_.add_argument("-filer", default="localhost:8888")
+    fmt_.add_argument("-pathPrefix", default="/")
+
+    fmb = sub.add_parser("filer.meta.backup",
+                         help="continuously back up filer metadata to a "
+                              "local file")
+    fmb.add_argument("-filer", default="localhost:8888")
+    fmb.add_argument("-o", dest="output", default="meta.backup")
 
     up = sub.add_parser("upload", help="upload files")
     up.add_argument("-master", default="localhost:9333")
@@ -267,7 +330,284 @@ def _wait_forever():
     ev.wait()
 
 
+def _follow(stub, req, on_event) -> None:
+    """Feed each response of SubscribeMetadata(req) to `on_event` until
+    SIGINT or SIGTERM cancels the call (between two events, so that no
+    event is half handled). A stream the filer drops (a restart, or the
+    GOAWAY that ends a stream idle past the keepalive policy) is opened
+    again from the last event handled; the reference's tools exit there
+    (ROADMAP.md C)."""
+    import grpc
+
+    stopped = threading.Event()
+    current = [None]
+
+    def stop(*_):
+        stopped.set()
+        if current[0] is not None:
+            current[0].cancel()
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, stop)
+    while not stopped.is_set():
+        stream = current[0] = stub.SubscribeMetadata(req)
+        if stopped.is_set():
+            stream.cancel()
+        try:
+            for resp in stream:
+                on_event(resp)
+                req.since_ns = resp.ts_ns
+        except grpc.RpcError as e:
+            if stopped.is_set() or e.code() == grpc.StatusCode.CANCELLED:
+                return
+            if e.code() != grpc.StatusCode.UNAVAILABLE:
+                raise
+            print(f"{req.client_name}: {e.details()}; following again from "
+                  f"{req.since_ns}", file=sys.stderr, flush=True)
+        stopped.wait(1.0)
+
+
+def _read_meta_backup(path: str) -> int:
+    """-> the newest ts_ns recorded in a filer.meta.backup file (0 if
+    none), truncating a torn last record so that appends stay
+    parseable."""
+    import os
+    import struct
+
+    from ..pb import filer_pb2
+
+    since_ns = 0
+    if not os.path.exists(path):
+        return since_ns
+    good_end = 0
+    with open(path, "rb") as f:
+        while True:
+            hdr = f.read(4)
+            if len(hdr) < 4:
+                break
+            (n,) = struct.unpack(">I", hdr)
+            blob = f.read(n)
+            if len(blob) < n:
+                break
+            msg = filer_pb2.SubscribeMetadataResponse.FromString(blob)
+            since_ns = max(since_ns, msg.ts_ns)
+            good_end = f.tell()
+    if good_end < os.path.getsize(path):
+        with open(path, "r+b") as f:
+            f.truncate(good_end)
+    return since_ns
+
+
+def _filer_tool(opts) -> int:
+    """The filer's tools: filer.sync, filer.replicate, filer.backup,
+    filer.cat, filer.copy, filer.meta.tail, filer.meta.backup,
+    filer.remote.sync and filer.remote.gateway."""
+    import time
+
+    import requests
+
+    from ..pb import filer_pb2, rpc
+    from ..utils.http import requests_verify, url_for
+
+    if opts.cmd == "filer.sync":
+        from ..replication import FilerSyncLoop
+
+        b_path = opts.b_path or opts.a_path
+        loops = [FilerSyncLoop(opts.a, opts.b, source_path=opts.a_path,
+                               target_path=b_path)]
+        if opts.isActiveActive:
+            loops.append(FilerSyncLoop(opts.b, opts.a,
+                                       source_path=b_path,
+                                       target_path=opts.a_path))
+        for lp in loops:
+            lp.start()
+        _wait_forever()
+        for lp in loops:
+            lp.stop()
+        return 0
+
+    if opts.cmd == "filer.replicate":
+        from ..replication import FilerSource, Replicator, new_sink
+
+        prefix = opts.sink_dir or ""
+        if opts.sink == "local":
+            sink = new_sink("local", directory=opts.sink_dir or "./replica")
+        elif opts.sink == "filer":
+            sink = new_sink("filer", filer=opts.sink_filer)
+        elif opts.sink == "gcs":
+            sink = new_sink("gcs", bucket=opts.sink_bucket,
+                            token=opts.sink_key, directory=prefix,
+                            **({"endpoint": opts.sink_endpoint}
+                               if opts.sink_endpoint else {}))
+        elif opts.sink == "azure":
+            sink = new_sink("azure", container=opts.sink_container,
+                            account=opts.sink_account, key=opts.sink_key,
+                            directory=prefix, endpoint=opts.sink_endpoint)
+        elif opts.sink == "b2":
+            sink = new_sink("b2", bucket=opts.sink_bucket,
+                            key_id=opts.sink_key_id,
+                            application_key=opts.sink_app_key,
+                            directory=prefix,
+                            **({"endpoint": opts.sink_endpoint}
+                               if opts.sink_endpoint else {}))
+        else:
+            # anonymous, as in the reference: the CLI takes no S3 keys
+            sink = new_sink("s3", endpoint=opts.sink_endpoint,
+                            bucket=opts.sink_bucket, directory=prefix)
+        repl_ = Replicator(FilerSource(opts.filer), sink,
+                           source_prefix=opts.path)
+        stub = rpc.filer_stub(rpc.grpc_address(opts.filer))
+
+        def apply(resp):
+            try:
+                repl_.replicate(resp)
+            except Exception as e:
+                # the sink's retries are spent: the event is reported and
+                # the stream goes on, as filer_replicate.go logs and goes on
+                print(f"replicate error: {e}", file=sys.stderr, flush=True)
+
+        _follow(stub, filer_pb2.SubscribeMetadataRequest(
+            client_name="filer.replicate", path_prefix=opts.path,
+            since_ns=time.time_ns()), apply)
+        return 0
+
+    if opts.cmd == "filer.backup":
+        from ..replication import FilerSource, new_sink
+
+        source = FilerSource(opts.filer)
+        sink = new_sink("local", directory=opts.target)
+        stub = rpc.filer_stub(rpc.grpc_address(opts.filer))
+        copied = 0
+        root = opts.path.rstrip("/") or "/"
+
+        def walk(directory):
+            nonlocal copied
+            for resp in stub.ListEntries(filer_pb2.ListEntriesRequest(
+                    directory=directory, limit=1 << 20)):
+                e = resp.entry
+                path = directory.rstrip("/") + "/" + e.name
+                rel = path[len(root):] if root != "/" else path
+                if e.is_directory:
+                    sink.create_entry(rel, e, None)
+                    walk(path)
+                else:
+                    sink.create_entry(rel, e,
+                                      source.read_entry_content(e, path))
+                    copied += 1
+
+        walk(root)
+        print(f"backed up {copied} files to {opts.target}")
+        return 0
+
+    if opts.cmd == "filer.remote.sync":
+        from ..remote_storage import RemoteGateway
+
+        n = RemoteGateway(opts.filer).sync_dir(opts.dir)
+        print(f"synced {n} entries")
+        return 0
+
+    if opts.cmd == "filer.remote.gateway":
+        import threading
+
+        from ..remote_storage import RemoteGateway
+
+        gw = RemoteGateway(opts.filer)
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        while not stop.is_set():
+            for directory in list(gw.conf.load().get("mounts", {})):
+                try:
+                    n = gw.sync_dir(directory)
+                    if n:
+                        print(f"synced {n} entries in {directory}",
+                              flush=True)
+                except Exception as e:
+                    # one mount's failure is reported; the others still
+                    # sync, and it is tried again next interval
+                    print(f"sync {directory}: {e}", file=sys.stderr,
+                          flush=True)
+            stop.wait(opts.interval)
+        return 0
+
+    if opts.cmd == "filer.cat":
+        path = opts.path if opts.path.startswith("/") else "/" + opts.path
+        r = requests.get(url_for(opts.filer, path), timeout=300,
+                         stream=True, verify=requests_verify())
+        if r.status_code != 200:
+            print(f"{path}: HTTP {r.status_code}", file=sys.stderr)
+            return 1
+        for piece in r.iter_content(chunk_size=256 * 1024):
+            sys.stdout.buffer.write(piece)
+        sys.stdout.buffer.flush()
+        return 0
+
+    if opts.cmd == "filer.copy":
+        import os
+
+        if len(opts.files) < 2:
+            print("usage: filer.copy <src>... <dest-dir>", file=sys.stderr)
+            return 1
+        *sources, dest = opts.files
+        dest = dest if dest.startswith("/") else "/" + dest
+        copied = 0
+        for src in sources:
+            paths = []
+            if os.path.isdir(src):
+                for dirpath, _dirs, files in os.walk(src):
+                    for name in files:
+                        full = os.path.join(dirpath, name)
+                        paths.append((full, os.path.relpath(full, src)))
+            else:
+                paths.append((src, os.path.basename(src)))
+            for full, rel in paths:
+                target = dest.rstrip("/") + "/" + rel
+                with open(full, "rb") as f:  # streamed, not slurped
+                    r = requests.put(url_for(opts.filer, target), data=f,
+                                     timeout=300, verify=requests_verify())
+                if r.status_code >= 300:
+                    print(f"{target}: HTTP {r.status_code}",
+                          file=sys.stderr)
+                    return 1
+                copied += 1
+        print(f"copied {copied} files to {dest}")
+        return 0
+
+    if opts.cmd == "filer.meta.tail":
+        import json
+
+        from google.protobuf.json_format import MessageToDict
+
+        stub = rpc.filer_stub(rpc.grpc_address(opts.filer))
+        _follow(stub, filer_pb2.SubscribeMetadataRequest(
+            client_name="filer.meta.tail", path_prefix=opts.pathPrefix,
+            since_ns=time.time_ns()),
+            lambda resp: print(json.dumps(MessageToDict(resp)), flush=True))
+        return 0
+
+    if opts.cmd == "filer.meta.backup":
+        import struct
+
+        # resume from the last backed-up event so restarts don't duplicate
+        since_ns = _read_meta_backup(opts.output)
+        stub = rpc.filer_stub(rpc.grpc_address(opts.filer))
+        with open(opts.output, "ab") as f:
+            def record(resp):
+                blob = resp.SerializeToString()
+                f.write(struct.pack(">I", len(blob)) + blob)
+                f.flush()
+
+            _follow(stub, filer_pb2.SubscribeMetadataRequest(
+                client_name="filer.meta.backup", path_prefix="/",
+                since_ns=since_ns), record)
+        return 0
+
+    raise SystemExit(f"unknown command {opts.cmd}")
+
+
 def _run(opts) -> int:
+    if opts.cmd.startswith("filer."):
+        return _filer_tool(opts)
     if opts.cmd == "version":
         from .. import __version__
 
@@ -322,7 +662,7 @@ def _run(opts) -> int:
                 fs = FilerServer(ip=opts.ip, port=opts.filer_port,
                                  master=f"{opts.ip}:{opts.master_port}",
                                  store_dir=opts.dir.split(",")[0] + "/filer")
-            except (ValueError, NotImplementedError) as e:
+            except (ValueError, NotImplementedError, RuntimeError) as e:
                 vsrv.stop()  # nothing bound yet; the store lifts its marker
                 raise SystemExit(f"server: {e}")
         ms = MasterServer(ip=opts.ip, port=opts.master_port)
@@ -361,9 +701,9 @@ def _run(opts) -> int:
                              chunk_size=max(1, opts.maxMB) * 1024 * 1024,
                              peers=[p.strip() for p in opts.peers.split(",")
                                     if p.strip()])
-        except (ValueError, NotImplementedError) as e:
-            # a store, or a notification queue, the port does not carry:
-            # fail at start, never fall back
+        except (ValueError, NotImplementedError, RuntimeError) as e:
+            # a store the port does not carry, or a notification queue
+            # that cannot initialize: fail at start, never fall back
             raise SystemExit(f"filer: {e}")
         fs.start()
         _wait_forever()

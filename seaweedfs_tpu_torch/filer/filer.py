@@ -4,9 +4,9 @@ Counterpart of seaweedfs_tpu/filer/filer.py (SeaweedFS weed/filer/filer.go:
 CreateEntry :175, UpdateEntry :284, FindEntry :312; filer_delete_entry.go,
 filer_rename.go via filer gRPC AtomicRenameEntry, and filer_notify.go's
 metadata event stream, whose LogBuffer becomes a bounded in-memory deque
-that subscribers drain with a replay cursor). External notification
-queues (notification.toml) are not part of the port yet: the filer
-server refuses a configuration that enables one.
+that subscribers drain with a replay cursor). Each event is also
+published to the queue notification.toml configures, if any
+(filer_notify.go's Queue.SendMessage).
 """
 
 from __future__ import annotations
@@ -47,6 +47,9 @@ class Filer:
         # falls back to the persisted log instead of losing drops from
         # the bounded deque).
         self.meta_log = MetaLog(store) if persist_meta_log else None
+        # optional external publisher (notification.toml; filer_notify.go's
+        # Queue.SendMessage side of NotifyUpdateEvent) — set by the server
+        self.notification_queue = None
 
     # -- events (filer_notify.go:20 NotifyUpdateEvent) ---------------------
 
@@ -73,6 +76,14 @@ class Filer:
             self._log_cond.notify_all()
         if self.meta_log is not None:
             self.meta_log.append(msg)
+        if self.notification_queue is not None:
+            key = (new or old).full_path if (new or old) else directory
+            try:
+                self.notification_queue.send_message(key, ev)
+            except Exception as e:  # publisher failures must not fail writes
+                from ..utils import glog
+
+                glog.warning(f"notification publish failed: {e}")
 
     def read_events(self, since_ns: int, timeout: float = 1.0):
         """-> (events newer than since_ns, new cursor).
@@ -217,7 +228,11 @@ class Filer:
                       hard_link_counter=entry.hard_link_counter)
         self.store.delete_entry(old_path)
         self.store.insert_entry(moved)
-        self._notify(moved.parent, entry, moved)
+        # the event sits in the directory the entry left, and names the
+        # one it entered (filer_notify.go NotifyUpdateEvent); the
+        # reference files it under the new directory, so a subscriber
+        # deletes a path that never existed (ROADMAP.md C)
+        self._notify(entry.parent, entry, moved)
         yield entry, moved
 
     def list_entries(self, dir_path: str, start: str = "",

@@ -10,13 +10,17 @@ to volume servers, then save the entry. GET streams chunks back through the
 resolved view (StreamContent, stream.go:69); directories list as JSON.
 DELETE removes entries (recursive with ?recursive=true) and GCs chunks.
 
-Two parts of the reference stay out of the port, and neither falls back:
-the C++ filer hot plane (`native_volume_plane=`) fails at construction,
-naming the native data plane's ROADMAP.md item, and an entry that lives
-only in remote storage answers an error naming the remote-storage item
-instead of serving bytes. So do a notification.toml that enables a
-queue, a filer.toml section that enables a network store
-(filerstore.WIRE_STORES), and the HTML listing (`?ui`).
+An entry mounted from remote storage and not cached streams from the
+remote store on each read (remote_storage.RemoteGateway.read_through),
+exactly its declared size or an error; CacheRemoteObjectToLocalCluster
+writes it into the filer's volumes. Every event is published to the queue
+notification.toml enables.
+
+Parts of the reference stay out of the port, and none falls back: the C++
+filer hot plane (`native_volume_plane=`) fails at construction, naming
+the native data plane's ROADMAP.md item; so do a filer.toml section that
+enables a network store (filerstore.WIRE_STORES) and the HTML listing
+(`?ui`).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from ..filer.filerstore import RetryingStore, get_store
 from ..operation import assign, delete_files, upload_data
 from ..pb import filer_pb2, master_pb2, rpc
 from ..qos.pressure import SIGNAL as PRESSURE_SIGNAL
+from ..remote_storage import REMOTE_ENTRY_KEY, RemoteConf, RemoteGateway
 from ..utils import glog, trace
 from ..utils.chunk_cache import TieredChunkCache
 from ..utils.http import not_modified, parse_range, range_applies, url_for
@@ -76,20 +81,11 @@ CHUNK_SIZE = 4 * 1024 * 1024  # maxMB default (command/filer.go)
 FID_LEASE_BATCH = 128
 
 ROADMAP_NATIVE = "ROADMAP.md A2c (native C++ data plane)"
-ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
-ROADMAP_NOTIFICATION = "ROADMAP.md A2d (notification queues)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
-# Entry.extended marker of a remote-mounted entry (remote_storage)
-REMOTE_ENTRY_KEY = "remote.entry"
 
 
 def _not_ported(what: str, item: str) -> str:
     return f"{what} is not part of the PyTorch port yet: {item}"
-
-
-class RemoteEntryError(IOError):
-    """A remote-only entry: its bytes live in remote storage, which the
-    port cannot read yet."""
 
 
 def is_remote_only(entry: Entry) -> bool:
@@ -118,21 +114,28 @@ class FilerServer:
         self.collection = collection
         self.replication = replication
         self.chunk_size = chunk_size
+        from ..notification import load_configuration
         from ..utils.config import enabled_notification_queue, load_config
 
-        # the reference publishes every event to the queue that
-        # notification.toml enables (filer.go LoadConfiguration
-        # ("notification")); the port has no queue to publish to. A file
-        # that does not parse is ignored with a warning, as there.
+        # every event is published to the queue that notification.toml
+        # enables (filer.go LoadConfiguration("notification")). A file
+        # that does not parse is ignored with a warning, as in the
+        # reference; a queue that cannot initialize (an unreachable
+        # broker, a missing SQS queue) stops the filer here, before the
+        # store opens, where the reference warns and publishes nothing
+        # (ROADMAP.md C)
         try:
-            queue = enabled_notification_queue(load_config("notification"))
+            notification_conf = load_config("notification")
         except (ValueError, OSError) as e:
             glog.warning(f"notification config ignored: {e}")
-            queue = ""
-        if queue:
-            raise NotImplementedError(_not_ported(
-                f"notification queue {queue!r} (notification.toml)",
-                ROADMAP_NOTIFICATION))
+            notification_conf = {}
+        queue, name = None, enabled_notification_queue(notification_conf)
+        if name:
+            try:
+                queue = load_configuration(notification_conf)
+            except Exception as e:
+                raise RuntimeError(f"notification queue {name!r} "
+                                   f"(notification.toml): {e}") from e
         # filer.toml's enabled section selects + configures the store
         # (command/filer.go LoadConfiguration("filer") — the reference's
         # only store-selection mechanism; the -store flag remains as the
@@ -169,6 +172,14 @@ class FilerServer:
         # transient backend hiccups (and injected chaos) retry with
         # backoff instead of surfacing as 500s from handler threads
         self.filer = Filer(RetryingStore(backing))
+        self.filer.notification_queue = queue
+        # the remote-only read-through and CacheRemoteObjectToLocalCluster
+        # read the mount table in process, never through this filer's
+        # own gRPC (a nested loopback call from a gRPC worker could take
+        # the last thread of its pool)
+        self.remote_gateway = RemoteGateway(
+            self.address, conf=RemoteConf(
+                self.address, entry_reader=self._local_entry_content))
         self.master_client = MasterClient(master)
         # batched fid leasing: N small-file chunk saves cost ~1
         # master Assign RPC
@@ -790,6 +801,14 @@ class FilerServer:
         self.ensure_parent_dirs(entry.full_path)
         return entry
 
+    def _local_entry_content(self, directory: str, name: str
+                             ) -> bytes | None:
+        try:
+            return self.filer.find_entry(
+                directory.rstrip("/") + "/" + name).content
+        except NotFound:
+            return None
+
     def stream_file(self, entry: Entry, offset: int = 0,
                     size: int | None = None):
         """Yield the file's bytes one chunk view at a time (StreamContent,
@@ -799,12 +818,14 @@ class FilerServer:
             yield memoryview(entry.content)[offset:end]
             return
         if is_remote_only(entry):
-            # mounted but not cached: the reference streams it through
-            # from the remote store (IsInRemoteOnly); the port has no
-            # remote store to read, and serves no stale bytes
-            raise RemoteEntryError(_not_ported(
-                f"reading the remote-only entry {entry.full_path}",
-                ROADMAP_REMOTE))
+            # mounted but not cached: stream through from the remote store
+            # on demand (the reference's IsInRemoteOnly read fallback),
+            # capped at the entry's declared size so Content-Length holds;
+            # a remote that is now shorter raises (read_through)
+            cap = entry.size() - offset if size is None else size
+            yield from self.remote_gateway.read_through(
+                entry.full_path, offset, max(cap, 0))
+            return
         # TTL'd entries never enter the chunk cache: their needles expire
         # volume-side and nothing would ever invalidate the cached copy
         # (TTL expiry doesn't pass through _gc_chunks)
@@ -1316,8 +1337,12 @@ class FilerGrpc:
             for msg in events:
                 if request.until_ns and msg.ts_ns > request.until_ns:
                     return
+                # a rename matches where it left and where it went
+                # (filer_grpc_server_sub_meta.go)
+                new_parent = msg.event_notification.new_parent_path
                 if prefixes and not any(
-                        msg.directory.startswith(p) for p in prefixes):
+                        msg.directory.startswith(p) or new_parent and
+                        new_parent.startswith(p) for p in prefixes):
                     continue
                 yield msg
 
@@ -1344,10 +1369,35 @@ class FilerGrpc:
         return filer_pb2.KvPutResponse()
 
     def CacheRemoteObjectToLocalCluster(self, request, context):
-        """filer_grpc_server_remote.go: the wire contract behind `weed
-        shell remote.cache`. Remote storage is not part of the port."""
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, _not_ported(
-            "CacheRemoteObjectToLocalCluster", ROADMAP_REMOTE))
+        """filer_grpc_server_remote.go: materialize a remote-mounted
+        entry's bytes into local volumes and return the updated entry
+        (the wire contract behind `weed shell remote.cache`).
+
+        Everything runs in-process (find/update via self.filer, bytes
+        via srv.write_file): nested loopback gRPC from inside a gRPC
+        worker could exhaust the 32-thread pool under concurrency."""
+        path = request.directory.rstrip("/") + "/" + request.name
+        try:
+            e = self.filer.find_entry(path)
+        except NotFound:
+            context.abort(grpc.StatusCode.NOT_FOUND, f"{path} not found")
+        marker = e.extended.get(REMOTE_ENTRY_KEY)
+        if not marker:
+            context.abort(grpc.StatusCode.NOT_FOUND,
+                          f"{path} is not a remote entry")
+        try:
+            client, rpath = self.srv.remote_gateway._remote_location(path)
+            data = client.read_file(rpath)
+            # the marker rides the SAME store write as the content: a
+            # crash between "write bytes" and a follow-up marker update
+            # must not leave a cached entry that is no longer recognized
+            # as remote (breaking remote.uncache / meta sync for it)
+            e = self.srv.write_file(
+                path, data, extended={REMOTE_ENTRY_KEY: marker})
+        except Exception as err:  # noqa: BLE001 - remote IO failures
+            context.abort(grpc.StatusCode.INTERNAL, str(err))
+        return filer_pb2.CacheRemoteObjectToLocalClusterResponse(
+            entry=e.to_pb())
 
     def GetMetaRing(self, request, context):
         """Ring proxy: any filer serves the ring it routes
@@ -1596,10 +1646,6 @@ def _make_http_handler(srv: FilerServer):
                 # .go:65-80); RFC 7232 §3.3: If-Modified-Since is consulted
                 # only when no If-None-Match was sent — and If-None-Match
                 # is a weak-compared entity-tag LIST (utils.http)
-                if is_remote_only(entry):
-                    return self._json({"error": _not_ported(
-                        f"reading the remote-only entry {entry.full_path}",
-                        ROADMAP_REMOTE)}, 501)
                 if not_modified(self.headers, etag, entry.attr.mtime):
                     from ..utils.stats import HTTP_CONDITIONAL_OPS
 

@@ -11,8 +11,7 @@ EC dispatch scheduler).
 
 Every RPC of the service is registered. Those whose dependencies are not
 part of the port yet answer UNIMPLEMENTED (HTTP: 501) with a message that
-names the ROADMAP.md item that will port them: tiering, remote fetch,
-Query, /ui, image resizing and the native C++ data plane (`native=True`
+names the ROADMAP.md item that will port them: tiering, Query, /ui, image resizing and the native C++ data plane (`native=True`
 raises here). A server without a reachable master
 keeps serving: the heartbeat retries and EC shard lookups cache an empty
 answer, so the local shards encode, serve degraded reads, rebuild and
@@ -83,7 +82,6 @@ EC_LOCATION_RETRY_S = 1.0
 
 # ROADMAP.md items that will port what this module answers UNIMPLEMENTED
 ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
-ROADMAP_REMOTE = "ROADMAP.md A2d (remote_storage)"
 ROADMAP_QUERY = "ROADMAP.md A2d (query)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
 ROADMAP_IMAGES = "ROADMAP.md A2d (images)"
@@ -2005,7 +2003,43 @@ class VolumeGrpc:
     # ---- remote fetch (volume_grpc_remote.go FetchAndWriteNeedle) --------
 
     def FetchAndWriteNeedle(self, request, context):
-        _unimplemented(context, "FetchAndWriteNeedle", ROADMAP_REMOTE)
+        from ..remote_storage import new_client
+
+        v = self._volume(request.volume_id, context)
+        rc = request.remote_conf
+        conf = {"type": rc.type or "local", "name": rc.name}
+        if conf["type"] == "local":
+            # anyone may call this: a fetch reads under a directory that
+            # exists and is not "/", and creates none; the reference
+            # takes any root and makes it (ROADMAP.md C)
+            root = rc.local_root
+            if not root or os.path.realpath(root) == "/" or \
+                    not os.path.isdir(root):
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              f"remote fetch: local root {root!r} refused")
+            conf["root"] = root
+        elif conf["type"] == "s3":
+            conf.update(endpoint=rc.s3_endpoint,
+                        bucket=request.remote_location.bucket,
+                        access_key=rc.s3_access_key,
+                        secret_key=rc.s3_secret_key,
+                        region=rc.s3_region or "us-east-1")
+        try:
+            client = new_client(conf)
+            data = client.read_file(request.remote_location.path,
+                                    request.offset,
+                                    request.size if request.size else -1)
+        except PermissionError as e:
+            context.abort(grpc.StatusCode.PERMISSION_DENIED,
+                          f"remote fetch: {e}")
+        except Exception as e:
+            context.abort(grpc.StatusCode.INTERNAL, f"remote fetch: {e}")
+        n = Needle.create(request.needle_id, request.cookie, bytes(data))
+        v.write_needle(n, check_cookie=False)
+        import hashlib as _hashlib
+
+        return vs.FetchAndWriteNeedleResponse(
+            e_tag=_hashlib.md5(bytes(data)).hexdigest())
 
     # ---- select on the volume server (volume_grpc_query.go) --------------
 

@@ -1,13 +1,12 @@
-# the command modules of the port; `deferred` registers the reference's
-# remote.* and mq.* commands, each failing with its ROADMAP.md item
+# the command modules of the port
 from . import (  # noqa: F401
     cluster,
     collection,
-    deferred,
     ec,
     fs,
     lock,
     qos_cmd,
+    remote,
     s3,
     trace_cmd,
     volume,

@@ -3,9 +3,7 @@
 Counterpart of seaweedfs_tpu/shell/commands/fs.py (SeaweedFS
 weed/shell/command_fs_*.go: fs.ls, fs.cd, fs.pwd, fs.cat, fs.du, fs.mkdir,
 fs.rm, fs.mv, fs.tree, fs.verify, fs.configure and the fs.meta.* tools).
-`mount.configure`, which the reference keeps in this file, waits for the
-mount gateway, and `fs.meta.notify` publishes to no queue until the
-notification queues are ported: each fails naming its ROADMAP.md item.
+`fs.meta.notify` publishes to the queue notification.toml configures.
 """
 
 from __future__ import annotations
@@ -16,8 +14,6 @@ import grpc
 
 from ...pb import filer_pb2, rpc
 from ..registry import command
-
-ROADMAP_NOTIFICATION = "ROADMAP.md A2d (notification queues)"
 
 
 def _stub(env):
@@ -244,8 +240,11 @@ def fs_meta_tail(env, args, out):
                 kind = ("update" if ev.old_entry.name and ev.new_entry.name
                         else "create" if ev.new_entry.name else "delete")
                 name = ev.new_entry.name or ev.old_entry.name
-                print(f"{resp.ts_ns} {kind} {resp.directory}/{name}",
-                      file=out)
+                # a rename is filed under the directory it left; the
+                # entry now lives in new_parent_path
+                directory = ((ev.new_parent_path or resp.directory)
+                             if ev.new_entry.name else resp.directory)
+                print(f"{resp.ts_ns} {kind} {directory}/{name}", file=out)
         except grpc.RpcError as e:
             if e.code() != grpc.StatusCode.DEADLINE_EXCEEDED:
                 raise
@@ -484,14 +483,28 @@ def fs_meta_change_volume_id(env, args, out):
          "fs.meta.notify [dir] — re-publish create events for a tree")
 def fs_meta_notify(env, args, out):
     """command_fs_meta_notify.go: resend metadata as notification events
-    to the queue notification.toml configures. The shell loads
-    notification.toml itself, exactly like the reference command; the
-    port has no queue to publish to yet."""
-    from ...utils.config import enabled_notification_queue, load_config
+    (e.g. to prime a freshly configured notification backend). The shell
+    loads notification.toml itself, exactly like the reference command."""
+    from ...notification import current_queue, load_configuration
+    from ...utils.config import load_config
 
-    queue = enabled_notification_queue(load_config("notification"))
-    if not queue:
+    q = load_configuration(load_config("notification")) or current_queue()
+    if q is None:
         raise RuntimeError("no notification queue configured "
                            "(see notification.toml)")
-    raise RuntimeError(f"notification queue {queue!r} is not part of the "
-                       f"PyTorch port yet: {ROADMAP_NOTIFICATION}")
+    root = _resolve(env, args[0] if args else None)
+    sent = 0
+
+    def walk(d: str) -> None:
+        nonlocal sent
+        for e in _list(env, d):
+            full = f"{d.rstrip('/')}/{e.name}"
+            ev = filer_pb2.EventNotification()
+            ev.new_entry.CopyFrom(e)
+            q.send_message(full, ev)
+            sent += 1
+            if e.is_directory:
+                walk(full)
+
+    walk(root)
+    print(f"notified {sent} entries under {root}", file=out)

@@ -86,7 +86,6 @@ from seaweedfs_tpu_torch.pb import rpc
 from seaweedfs_tpu_torch.server import filer as filer_server
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
-from seaweedfs_tpu_torch.shell.commands.deferred import DEFERRED as SHELL_DEFERRED
 from seaweedfs_tpu_torch.shell.env import CommandEnv
 from seaweedfs_tpu_torch.shell.registry import run_command
 from seaweedfs_tpu_torch.storage import needle, recovery
@@ -1047,21 +1046,6 @@ def test_server_filer_on_a_wire_store_refuses_at_start(tmp_path,
         s.bind(("", mport))  # the master never bound its port
 
 
-def test_a_notification_queue_refuses(tmp_path, monkeypatch):
-    (tmp_path / "notification.toml").write_text(
-        "[notification.log]\nenabled = true\n")
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError) as e:
-        filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,
-                                 master="127.0.0.1:1",
-                                 store_dir=str(tmp_path / "f"))
-    assert "ROADMAP.md A2d (notification queues)" in str(e.value)
-    out = io.StringIO()
-    env = CommandEnv("127.0.0.1:1", filer="127.0.0.1:1")
-    assert run_command(env, "fs.meta.notify /", out) == 1
-    assert "ROADMAP.md A2d (notification queues)" in out.getvalue()
-
-
 @pytest.mark.parametrize("name,text", [("filer", "[sqlite\n"),
                                         ("notification", "[notification\n")])
 def test_a_config_file_that_does_not_parse_is_ignored(name, text, tmp_path,
@@ -1114,42 +1098,8 @@ def test_the_native_hot_plane_refuses():
     assert "ROADMAP.md A2c (native C++ data plane)" in str(e.value)
 
 
-def test_a_remote_entry_answers_naming_its_item(tmp_path):
-    """An entry mounted from remote storage and never cached: GET answers
-    501 naming the item, the gRPC cache call UNIMPLEMENTED; no bytes."""
-    fs = filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,
-                                  master="127.0.0.1:1", store="memory")
-    fs.filer.create_entry(port_entry.Entry(
-        full_path="/remote/obj", attr=port_entry.Attr(mtime=1, crtime=1),
-        extended={filer_server.REMOTE_ENTRY_KEY: b"{}"}))
-    fs.start()
-    http = requests.Session()
-    http.trust_env = False
-    try:
-        r = http.get(f"http://127.0.0.1:{FILER_PORT}/remote/obj", timeout=30)
-        assert r.status_code == 501
-        assert "ROADMAP.md A2d (remote_storage)" in r.json()["error"]
-        with pytest.raises(IOError, match="remote_storage"):
-            b"".join(fs.stream_file(fs.filer.find_entry("/remote/obj")))
-        stub = rpc.filer_stub(f"127.0.0.1:{FILER_PORT + 10000}")
-        with pytest.raises(grpc.RpcError) as e:
-            stub.CacheRemoteObjectToLocalCluster(
-                filer_pb2.CacheRemoteObjectToLocalClusterRequest(
-                    directory="/remote", name="obj"), timeout=30)
-        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "ROADMAP.md A2d (remote_storage)" in e.value.details()
-    finally:
-        http.close()
-        fs.stop()
-        fs._http_server.server_close()
-        fs._grpc_server.stop(None).wait(10)
-        rpc.reset_channels()
-
-
 @pytest.mark.parametrize("argv", [
-    ["filer.cat"], ["filer.sync", "-a", "x", "-b", "y"], ["filer.replicate"],
-    ["filer.backup"], ["filer.meta.backup"], ["filer.remote.sync"],
-    ["filer.copy"], ["filer.meta.tail"], ["benchmark", "-nativeClient"],
+    ["benchmark", "-nativeClient"],
     ["filer", "-store", "redis"], ["-v", "1", "backup"],
     ["-vmodule", "filer=1", "benchmark", "-filer", "x"],
     ["master.follower"], ["benchmark", "-filer", "127.0.0.1:1"],
@@ -1162,8 +1112,7 @@ def test_cli_commands_not_ported_refuse_at_start(argv, tmp_path):
     assert "ROADMAP.md" in str(e.value.code)
 
 
-@pytest.mark.parametrize("line", sorted(SHELL_DEFERRED) + [
-    "remote.cache -dir=/buckets/b", "remote.mount -dir=/m -remote=s3/b",
+@pytest.mark.parametrize("line", [
     "volume.tier.upload -volumeId=1",
     "volume.tier.download -volumeId=1", "volume.tier.move",
     "cluster.raft.add -id=127.0.0.1:2", "cluster.raft.remove -id=127.0.0.1:2"])

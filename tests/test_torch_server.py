@@ -427,8 +427,7 @@ def test_each_server_opens_the_others_directory(code, direction,
 # -- what the port defers -----------------------------------------------------
 
 DEFERRED_RPCS = ("VolumeTierMoveDatToRemote",
-                 "VolumeTierMoveDatFromRemote",
-                 "FetchAndWriteNeedle", "Query")
+                 "VolumeTierMoveDatFromRemote", "Query")
 
 
 @pytest.fixture(scope="module")

@@ -598,16 +598,11 @@ def test_the_port_shell_registers_the_reference_commands_it_ports():
     from seaweedfs_tpu.shell.registry import COMMANDS as REF_COMMANDS
     from seaweedfs_tpu_torch.shell.registry import COMMANDS
 
-    from seaweedfs_tpu_torch.shell.commands.deferred import DEFERRED
-
     ported = {n for n in REF_COMMANDS
               if n.split(".")[0] in ("volume", "volumeServer", "ec", "lock",
                                      "unlock", "cluster", "collection",
                                      "qos", "trace", "fs", "s3", "mq",
-                                     "mount")}
+                                     "mount", "remote")}
     assert ported <= set(COMMANDS) <= set(REF_COMMANDS)
-    # the remote.* commands are registered only to refuse
-    assert not [n for n in COMMANDS if n.startswith("remote.")
-                and n not in DEFERRED]
-    assert not [n for n in COMMANDS if n.startswith(("s3.", "mq.", "mount."))
-                and n in DEFERRED]
+    # every reference command is registered in the port
+    assert set(COMMANDS) == set(REF_COMMANDS)
