@@ -97,7 +97,8 @@ and prints no result without them. Phases, each printing its own line:
                      seaweedfs_tpu_torch volume` with its default coder
                      (cuda, K1) and an unreachable master; over gRPC
                      AllocateVolume, 512 MiB of seeded 1-64 KiB needles
-                     POSTed over HTTP by 8 clients, VolumeMarkReadonly,
+                     POSTed over HTTP by 8 clients, an eighth of them
+                     GET from the plain volume, VolumeMarkReadonly,
                      VolumeEcShardsGenerate, VolumeUnmount and
                      VolumeEcShardsMount; shards {0, 5, 13} unmounted,
                      deleted and the rest remounted, every needle GET by 8
@@ -118,7 +119,7 @@ and prints no result without them. Phases, each printing its own line:
                      K1) in racks r0, r0, r1, r1, all started at once.
                      `shell` volume.grow of one volume of collection c1
                      with replication 001; 8 clients write seeded 1-64 KiB
-                     needles through operation.submit until it holds 256
+                     needles through operation.submit until it holds 192
                      MiB of needle bytes (both replicas hold every one); a
                      seeded 10% deleted through the primary, then
                      `volume.vacuum -garbageThreshold 0.05` (both replicas
@@ -161,12 +162,12 @@ and prints no result without them. Phases, each printing its own line:
                      r0, r0, r1, r1 and a `filer` (-store sqlite, the
                      default -maxMB 4, its own -dir, its chunk cache off
                      so that every GET reaches the volume servers).
-                     8 clients PUT about 0.85 GB of seeded files through its
-                     HTTP API: 2,500 of 1-64 KiB (1,000 in one directory,
+                     8 clients PUT about 0.8 GB of seeded files through its
+                     HTTP API: 700 of 1-64 KiB (600 in one directory,
                      the rest in 64 nested ones) and 24 of 8-64 MiB (2-16
                      chunks each); every file GET byte-exact with its md5
                      ETag, range GETs across a chunk boundary, the
-                     1,000-entry directory listed in pages (limit,
+                     600-entry directory listed in pages (limit,
                      lastFileName), one rename (gRPC AtomicRenameEntry),
                      one recursive DELETE. `lock; ec.encode -collection fc
                      -fullPercent 0.001; unlock` (streamed): every volume
@@ -189,7 +190,7 @@ and prints no result without them. Phases, each printing its own line:
                      s3.bucket.create, the identity pushed to the gateway
                      through SeaweedS3.Configure; an unsigned PUT refused
                      403. Every request below SigV4-signed (the port's
-                     sigv4_client): 8 clients PUT 2,000 seeded objects of
+                     sigv4_client): 8 clients PUT 250 seeded objects of
                      1-64 KiB over 16 prefixes and 4 of 24-48 MiB in 8 MiB
                      multipart parts (about 0.2 GiB, into the filer's
                      collection, so the encode above covers them); a
@@ -277,17 +278,50 @@ and prints no result without them. Phases, each printing its own line:
                      A's events once across its restart, filer.meta.tail
                      every /sync event since it started; every tool
                      process and filer B exit 0 on SIGTERM without jax
+ 12. hot             the filer hot plane as `server -filer` runs it: one
+                     `python3 -m seaweedfs_tpu_torch server -filer`
+                     process (master, a volume server on its C++ data
+                     plane, a filer whose C++ hot plane serves whole
+                     objects under /buckets/ off that plane) with its
+                     default coder (cuda, K1). 8 clients PUT 1,000 seeded
+                     files of 1-64 KiB under /buckets/hot/ through the
+                     filer's public port and 2 of 8 MiB (past the plane's
+                     4 MiB max_body: 307ed to Python, chunked); every
+                     file GET byte-exact (hot-plane answers and 307s
+                     timed apart), the listings hold every file, a
+                     DELETE through Python then a 404; `benchmark -filer`
+                     and `benchmark -nativeClient` (-n 2000 -size 4096 -c
+                     8) with 0 failed; the process SIGKILLed during a PUT
+                     storm of 8 clients and started again on its
+                     directory (the hot log replayed): every acknowledged
+                     PUT reads back; `lock; ec.encode -volumeId <each
+                     volume written>; unlock` (K1 at R = 4) and every
+                     file read back through the filer again (the hot map
+                     must not serve the removed plain volumes); SIGTERM:
+                     exit 0 without jax in sys.modules
+
+Every volume server these phases start (server, cluster, filer, hot) runs
+the reference's default `-nativeDataPlane auto`: the C++ data plane on its
+public port wherever g++ builds it. Each must report NativeDataPlane true
+and NativeRequests > 0 in /status, and where it served GETs of 4,096 B
+or more of needles the plane wrote (server, filer, hot) NativeSendfile >
+0 (cluster's master replicates at 001, whose writes go through Python,
+which tags each needle with the replica epoch, and the plane serves
+tagged needles buffered, so cluster's read 0); a plane that did not
+build fails the run. The
+script's HTTP clients follow one 307 to its Location, as a client does,
+and count them (REDIRECTS).
 
 --only KERNEL builds, checks and times that kernel alone and runs only its
 pipeline phases (a short loop for one kernel; K1's are pipeline, store,
-server, cluster and filer; the mesh phase needs K1 and K2, so it runs only
+server, cluster, filer and hot; the mesh phase needs K1 and K2, so it runs only
 without --only); the run says what it skipped.
 
 Each kernel's launch count is set to 0 just before each pipeline phase and
 read just after; a kernel that path never launched fails the run. The
 server phase's counts start at 0 with its process and are read from its
 /metrics before and after each step. K1's count in the JSON line is the sum
-over its six phases (pipeline, mesh, store, server, cluster, filer), K2's
+over its seven phases (pipeline, mesh, store, server, cluster, filer, hot), K2's
 over pipeline-bits and mesh. K1's launches are also split by R (1 or 2: a
 degraded read through EcVolume, 4: a degraded GET through the server, 3:
 rebuild, 4: encode). The
@@ -403,7 +437,7 @@ _MEMORY_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                 ("H200", 4.8e12), ("H100", 3.35e12))
 
 # the pipeline phases that drive each kernel
-PHASES = {"gf_xor": "pipeline, store, server, cluster and filer",
+PHASES = {"gf_xor": "pipeline, store, server, cluster, filer and hot",
           "gf_bits": "pipeline-bits",
           "gf_sel": "pipeline-sched"}
 # each kernel: its module, operand form and the TPU kernel it replaces
@@ -1692,11 +1726,68 @@ def _free_port_pair() -> int:
     raise RuntimeError("no free port pair")
 
 
-def _http(conn, method: str, path: str, body: bytes | None = None):
-    """One request on a keep-alive connection -> (status, body)."""
-    conn.request(method, path, body=body)
+# 307s followed by _request: a volume server's or a filer's C++ plane
+# hands what it does not serve (status pages, EC volumes, replicated
+# writes, ranges it does not take) to its Python listener
+REDIRECTS = collections.Counter()
+_REDIRECTS_MU = threading.Lock()
+# each thread's keep-alive connections to the Locations it was sent to,
+# as a client's connection pool holds them
+_HOPS = threading.local()
+
+
+def _hop(host: str, port: int, timeout: float) -> http.client.HTTPConnection:
+    conns = getattr(_HOPS, "conns", None)
+    if conns is None:
+        conns = _HOPS.conns = {}
+    conn = conns.get((host, port))
+    if conn is None:
+        conn = conns[(host, port)] = http.client.HTTPConnection(
+            host, port, timeout=timeout)
+    return conn
+
+
+def _request(conn, method: str, path: str, body: bytes | None = None,
+             headers: dict | None = None) -> tuple[int, bytes, bool]:
+    """One request on a keep-alive connection, following one 307 to its
+    Location as a client does (the body sent again, on the thread's
+    keep-alive connection to that address) -> (status, body, whether it
+    was redirected)."""
+    conn.request(method, path, body=body, headers=headers or {})
     r = conn.getresponse()
-    return r.status, r.read()
+    data = r.read()
+    if r.status != 307:
+        return r.status, data, False
+    loc = urllib.parse.urlsplit(r.getheader("Location"))
+    with _REDIRECTS_MU:
+        REDIRECTS[method] += 1
+    target = loc.path + (f"?{loc.query}" if loc.query else "")
+    for attempt in (0, 1):
+        hop = _hop(loc.hostname, loc.port, conn.timeout)
+        try:
+            hop.request(method, target, body=body, headers=headers or {})
+            r = hop.getresponse()
+            return r.status, r.read(), True
+        except (ConnectionError, http.client.HTTPException):
+            # a kept connection the server closed (or a server that
+            # restarted on the address): one fresh connection
+            hop.close()
+            del _HOPS.conns[(loc.hostname, loc.port)]
+            if attempt:
+                raise
+
+
+def _http(conn, method: str, path: str, body: bytes | None = None):
+    """One request on a keep-alive connection (one 307 followed) ->
+    (status, body)."""
+    return _request(conn, method, path, body)[:2]
+
+
+def _plane(port: int) -> tuple[bool, int, int]:
+    """A volume server's (NativeDataPlane, NativeRequests, NativeSendfile)
+    from its /status."""
+    st = _status(port)
+    return st["NativeDataPlane"], st["NativeRequests"], st["NativeSendfile"]
 
 
 def _fid(nid: int, cookie: int) -> str:
@@ -1906,6 +1997,14 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"{write_s:.3f} s = {total / write_s / 1e9:.3f} GB/s of "
                    f"needle bytes on {card}")
 
+        # an eighth of the needles GET from the plain volume: the C++
+        # plane's own reads (sendfile from 4,096 B), before the encode
+        # sends every GET to the Python listener
+        plain_ms = _get_all(phase, port, needles[::8], payload)
+        log(phase, f"{len(needles[::8])} needles GET byte-exact from the "
+                   f"plain volume by {SERVER_CLIENTS} readers "
+                   f"({_ms(plain_ms)})")
+
         # ec.encode: read-only, generate, unmount the plain volume, mount
         # the 14 shards
         geo = Geometry()
@@ -2038,6 +2137,17 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             raise AssertionError(f"{phase}: K1 did not encode at R = 4 and "
                                  f"rebuild at R = 3: {steps}")
         by_r = c5["k1"]
+        # the public port is the C++ plane, as the reference's default
+        # (`-nativeDataPlane auto` wherever g++ builds it): needle POSTs
+        # and live GETs (sendfile from 4,096 B), everything else 307ed
+        native, requests_n, sendfile_n = _plane(port)
+        if not (native and requests_n > 0 and sendfile_n > 0):
+            raise AssertionError(f"{phase}: /status NativeDataPlane "
+                                 f"{native}, NativeRequests {requests_n}, "
+                                 f"NativeSendfile {sendfile_n}")
+        log(phase, f"/status: NativeDataPlane {native}, NativeRequests "
+                   f"{requests_n}, NativeSendfile {sendfile_n}; 307s this "
+                   f"script followed so far {dict(REDIRECTS)}")
 
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
@@ -2051,7 +2161,8 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         log(phase, f"SIGTERM: exit 0, dirty marker lifted. write "
                    f"{total / write_s / 1e9:.3f} GB/s, encode "
                    f"{dat_bytes / enc_s / 1e9:.3f} GB/s, rebuild "
-                   f"{rebuild_gbps:.3f} GB/s, GET live "
+                   f"{rebuild_gbps:.3f} GB/s, GET of the plain volume "
+                   f"{statistics.fmean(plain_ms) * 1e3:.3f} ms, GET live "
                    f"{statistics.fmean(live_ms) * 1e3:.3f} ms, degraded "
                    f"{statistics.fmean(degraded_ms) * 1e3:.3f} ms "
                    f"({len(gets)} GETs); gf_xor by R {dict(sorted(by_r.items()))}; "
@@ -2075,7 +2186,7 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 # -- cluster --------------------------------------------------------------------
 
 
-CLUSTER_VOLUME_MB = 256  # needle bytes: the .dat stays under the limit
+CLUSTER_VOLUME_MB = 192  # needle bytes: the .dat stays under the limit
 CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
 CLUSTER_SMALL_MB = 128  # config #5's collection
 CLUSTER_MULTI = 4  # config #4: volumes streamed at once (-parallelEncode)
@@ -2106,6 +2217,8 @@ class _Fleet:
         self.master_port = _free_port_pair()
         self.master = f"127.0.0.1:{self.master_port}"
         self.k1_gone: dict[int, int] = {}  # K1 by R of killed servers
+        # _plane of killed servers, read just before they were killed
+        self.planes_gone: dict[str, tuple] = {}
 
     def _spawn(self, name: str, args: list[str], port: int, d: str,
                env: dict | None = None, modules: str = "",
@@ -2250,9 +2363,21 @@ class _Fleet:
                     out[int(r)] = out.get(int(r), 0) + n
         return out
 
+    def planes(self) -> dict[str, tuple]:
+        """{address: _plane} of every volume server, killed ones included;
+        fails unless each serves from the C++ plane and took requests."""
+        got = dict(self.planes_gone)
+        got.update({a: _plane(self.port_of(a)) for a in self.volumes()})
+        off = {a: p for a, p in got.items() if not (p[0] and p[1] > 0)}
+        if off:
+            raise AssertionError(f"{self.phase}: volume servers off the C++ "
+                                 f"plane or without requests: {off}")
+        return got
+
     def kill(self, address: str) -> None:
         name, _ = self.volumes()[address]
         proc, _, port, _ = self.procs[name]
+        self.planes_gone[address] = _plane(port)
         for (k, r), n in _kernel_launches(port).items():
             if k == "gf_xor" and r:
                 self.k1_gone[int(r)] = self.k1_gone.get(int(r), 0) + n
@@ -2612,7 +2737,7 @@ def _multi_stream(phase: str, fleet: _Fleet, rng, payload: bytes,
 def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The operator's path through a cluster of processes on the card
     (see the module docstring); -> K1's launches. Which encode runs
-    where: the 256 MiB volume of c1 and the four volumes of c4 take the
+    where: the 192 MiB volume of c1 and the four volumes of c4 take the
     default, streamed path (VolumeEcShardsGenerateStreamed on each source,
     K1 there while the shards stream); the RS(6,3) volume of c5 the copy
     path (`-stream 0`: VolumeEcShardsGenerate, then VolumeEcShardsCopy)."""
@@ -2945,6 +3070,13 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
         # 9. SIGTERM to every process
         by_r = fleet.k1()
+        # NativeSendfile stays 0 here: every plain needle this phase reads
+        # was written at 001 through Python, which tags it with the
+        # replica epoch, and the plane serves tagged needles buffered
+        planes = fleet.planes()
+        log(phase, f"every volume server on the C++ plane: (NativeDataPlane,"
+                   f" NativeRequests, NativeSendfile) {planes}; 307s this "
+                   f"script followed so far {dict(REDIRECTS)}")
         dirs = {n: d for n, (_, _, _, d) in fleet.procs.items()
                 if n != "master" and fleet.procs[n][0].poll() is None}
         rcs = fleet.terminate()
@@ -2980,8 +3112,8 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
 FILER_LIMIT_MB = 256  # the master's -volumeSizeLimitMB
 FILER_COLLECTION = "fc"
-FILER_SMALL = 2500  # files of 1-64 KiB: FILER_WIDE in one directory,
-FILER_WIDE = 1000  # the rest in FILER_DIRS nested directories
+FILER_SMALL = 700  # files of 1-64 KiB: FILER_WIDE in one directory,
+FILER_WIDE = 600  # the rest in FILER_DIRS nested directories
 FILER_DIRS = 64
 FILER_LARGE = 24  # files of 8-64 MiB: 2-16 chunks at the default -maxMB 4
 FILER_LARGE_MIB = (8, 64)
@@ -3113,12 +3245,12 @@ def _wait_listed(fleet: _Fleet, vols: dict) -> None:
 
 
 S3_BUCKET = "smoke"
-S3_OBJECTS = 2000  # objects of 1-64 KiB over S3_PREFIXES prefixes
+S3_OBJECTS = 250  # objects of 1-64 KiB over S3_PREFIXES prefixes
 S3_PREFIXES = 16
 S3_MULTIPART = 4  # objects of S3_MULTIPART_MIB in S3_PART parts
 S3_MULTIPART_MIB = (24, 48)
 S3_PART = 8 * MIB
-S3_PAGE = 50  # ListObjectsV2 max-keys: each prefix's listing pages
+S3_PAGE = 10  # ListObjectsV2 max-keys: each prefix's listing pages
 S3_IDENTITY = ("phase", "AKPHASE0000000000001", "phase-secret-0001")
 S3_ACTIONS = "Read,Write,List,Tagging,Admin"
 BENCH_N, BENCH_SIZE, BENCH_COLLECTION = 2000, 4096, "bench"
@@ -5216,7 +5348,9 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         sample = sorted(np.random.default_rng(seed + 1).choice(
             paths, size=FILER_SAMPLE, replace=False).tolist())
         for d in sorted({p.rsplit("/", 1)[0] for p in sample}):
-            got = sorted(f"{d}/{e.name}" for e in _filer_entries(faddr, d))
+            # the files of d (/fs holds directories beside readme.txt)
+            got = sorted(f"{d}/{e.name}" for e in _filer_entries(faddr, d)
+                         if not e.is_directory)
             if got != sorted(p for p in paths if p.rsplit("/", 1)[0] == d):
                 raise AssertionError(f"{phase}: after the restart {d} lists "
                                      f"{len(got)} entries")
@@ -5229,6 +5363,16 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
         # 6. SIGTERM to every process
         by_r = fleet.k1()
+        # this master's default replication is 000: the plane wrote the
+        # filer's chunks itself, untagged, and GETs of 4,096 B or more of
+        # them ride sendfile
+        planes = fleet.planes()
+        if not all(p[2] for p in planes.values()):
+            raise AssertionError(f"{phase}: a volume server served no GET "
+                                 f"by sendfile: {planes}")
+        log(phase, f"every volume server on the C++ plane: (NativeDataPlane,"
+                   f" NativeRequests, NativeSendfile) {planes}; 307s this "
+                   f"script followed so far {dict(REDIRECTS)}")
         dirs = {n: d for n, (_, _, _, d) in fleet.procs.items()
                 if n.startswith("v") and fleet.procs[n][0].poll() is None}
         rcs = fleet.terminate()
@@ -5277,6 +5421,333 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             gw.close()
         if tools is not None:
             tools.close()
+        fleet.close()
+        rpc.reset_channels()
+        shutil.rmtree(root)
+
+
+# -- hot ----------------------------------------------------------------------
+
+
+HOT_FILES = 1000  # files of 1-64 KiB under /buckets/hot/ (the hot plane)
+HOT_DIRS = 16
+HOT_LARGE = 2  # files of HOT_LARGE_MIB, past the plane's 4 MiB max_body
+HOT_LARGE_MIB = 8
+HOT_STORM_ACKS = 400  # acknowledged PUTs of the storm before its SIGKILL
+HOT_BENCH = ("-n", "2000", "-size", "4096", "-c", "8")
+BENCH_LINE = re.compile(r"(?:filer )?(write|read): ([\d.]+) req/s.*? "
+                        r"(\d+) failed")
+
+
+def _modules_clean(phase: str, path: str) -> None:
+    """The module list a process wrote as it exited holds the port and
+    neither jax nor anything of seaweedfs_tpu."""
+    with open(path) as f:
+        mods = f.read().split("\n")
+    bad = [m for m in mods if m in ("jax", "seaweedfs_tpu")
+           or m.startswith(("jax.", "seaweedfs_tpu."))]
+    if bad or "seaweedfs_tpu_torch.native.dataplane" not in mods:
+        raise AssertionError(f"{phase}: modules {bad[:5]}, the plane's "
+                             f"module loaded: "
+                             f"{'seaweedfs_tpu_torch.native.dataplane' in mods}")
+
+
+def _hot_log_records(path: str) -> int:
+    """Whole records in a filer hot log (41-byte header, path, mime)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    n = off = 0
+    while off + 41 <= len(buf):
+        _, plen, mlen = struct.unpack_from("<BHH", buf, off)
+        if off + 41 + plen + mlen > len(buf):
+            break
+        off += 41 + plen + mlen
+        n += 1
+    return n
+
+
+def _bench(phase: str, fleet: _Fleet, *args: str) -> dict[str, float]:
+    """`python3 -m seaweedfs_tpu_torch benchmark` -> {write|read: req/s};
+    fails unless both loops ran with 0 failed."""
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                        "benchmark", *args, *HOT_BENCH], cwd=HERE,
+                       env=fleet.env, capture_output=True, text=True,
+                       timeout=600)
+    got = {m.group(1): (float(m.group(2)), int(m.group(3)))
+           for m in BENCH_LINE.finditer(r.stdout)}
+    if r.returncode or set(got) != {"write", "read"} or any(
+            f for _, f in got.values()):
+        raise AssertionError(f"{phase}: benchmark {args} exited "
+                             f"{r.returncode}: {r.stdout[-2000:]}"
+                             f"{r.stderr[-2000:]}")
+    return {k: v[0] for k, v in got.items()}
+
+
+def hot_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
+    """`python3 -m seaweedfs_tpu_torch server -filer` with the C++ planes
+    (see the module docstring)."""
+    phase = "hot"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
+    fleet = _Fleet(phase, root)
+    d = os.path.join(root, "data")
+    os.mkdir(d)
+    vport = fport = fleet.master_port
+    while vport == fleet.master_port:
+        vport = _free_port_pair()
+    while fport in (fleet.master_port, vport):
+        fport = _free_port_pair()
+    faddr = f"127.0.0.1:{fport}"
+    modules = os.path.join(root, "server.modules")
+    args = ["server", "-dir", d, "-ip", "127.0.0.1", "-master.port",
+            str(fleet.master_port), "-volume.port", str(vport), "-filer",
+            "-filer.port", str(fport)]
+
+    def start(name: str) -> float:
+        t0 = time.perf_counter()
+        fleet._spawn(name, args, vport, d, modules=modules)
+        fleet.wait_up([name])
+        while True:
+            try:
+                if _status(fport)["NativeHotPlane"] is not None:
+                    return time.perf_counter() - t0
+                raise AssertionError(f"{phase}: the filer has no hot plane")
+            except OSError:
+                if fleet.procs[name][0].poll() is not None:
+                    raise AssertionError(f"{phase}: {name} exited")
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    raise
+                time.sleep(0.2)
+
+    try:
+        up_s = start("server")
+        rng = np.random.default_rng(seed)
+        payload = rng.bytes(64 * MIB)
+        files = {}
+        for i in range(HOT_FILES):
+            size = int(rng.integers(1, 64 * 1024 + 1))
+            start_at = int(rng.integers(0, len(payload) - size))
+            files[f"/buckets/hot/d{i % HOT_DIRS:02d}/f{i:05d}.bin"] = (
+                start_at, size)
+        large = {f"/buckets/hot/large/l{i}.bin": rng.bytes(HOT_LARGE_MIB * MIB)
+                 for i in range(HOT_LARGE)}
+
+        def body_of(path: str) -> bytes:
+            if path in large:
+                return large[path]
+            start_at, size = files[path]
+            return payload[start_at:start_at + size]
+
+        def put(conn, path):
+            t0 = time.perf_counter()
+            status, body, hopped = _request(conn, "PUT", path, body_of(path))
+            if status != 201:
+                raise AssertionError(f"{phase}: PUT {path}: {status} "
+                                     f"{body[:200]!r}")
+            return time.perf_counter() - t0, hopped
+
+        h0 = _status(fport)["NativeHotPlane"]
+        t0 = time.perf_counter()
+        puts = _clients(fport, put, list(files))
+        write_s = time.perf_counter() - t0
+        large_puts = _clients(fport, put, list(large))
+        h1 = _status(fport)["NativeHotPlane"]
+        written = sum(s for _, s in files.values())
+        log(phase, f"python3 -m seaweedfs_tpu_torch server -filer (default "
+                   f"coder) up in {up_s:.2f} s; {HOT_FILES} files of 1-64 "
+                   f"KiB ({written} B) PUT under /buckets/hot/ by "
+                   f"{SERVER_CLIENTS} clients through the filer's public "
+                   f"port in {write_s:.3f} s = {HOT_FILES / write_s:.0f} "
+                   f"files/s, {written / write_s / 1e9:.3f} GB/s "
+                   f"({sum(h for _, h in puts)} of them 307ed to Python); "
+                   f"{HOT_LARGE} of {HOT_LARGE_MIB} MiB through Python "
+                   f"({sum(h for _, h in large_puts)} 307ed); hot plane "
+                   f"{ {k: h1[k] - h0[k] for k in h1} }")
+        if not h1["native_puts"] - h0["native_puts"]:
+            raise AssertionError(f"{phase}: the hot plane took no PUT")
+        if sum(h for _, h in large_puts) != HOT_LARGE:
+            raise AssertionError(f"{phase}: a PUT past max_body was not "
+                                 f"sent to Python")
+
+        def get(conn, path):
+            t0 = time.perf_counter()
+            status, body, hopped = _request(conn, "GET", path)
+            if status != 200 or body != body_of(path):
+                raise AssertionError(f"{phase}: GET {path}: {status}, "
+                                     f"{len(body)} B, not the bytes written")
+            return time.perf_counter() - t0, hopped
+
+        def read_all(paths) -> tuple[list, list]:
+            got = _clients(fport, get, paths)
+            return ([t for t, h in got if not h], [t for t, h in got if h])
+
+        everything = list(files) + list(large)
+        hits, hops = read_all(everything)
+        h2 = _status(fport)["NativeHotPlane"]
+        listed = 0
+        for sub in sorted({p.rsplit("/", 1)[0] for p in everything}):
+            listed += len(_filer_entries(faddr, sub))
+        if listed != len(everything):
+            raise AssertionError(f"{phase}: the listings hold {listed} "
+                                 f"entries, {len(everything)} written")
+        gone = everything[0]
+        conn = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            del_status, _, del_hop = _request(conn, "DELETE", gone)
+            after_del = _request(conn, "GET", gone)[0]
+        finally:
+            conn.close()
+        if del_status not in (200, 202, 204) or after_del != 404:
+            raise AssertionError(f"{phase}: DELETE {gone}: {del_status}, "
+                                 f"then GET {after_del}")
+        del files[gone]
+        everything.remove(gone)
+        log(phase, f"every file GET byte-exact by {SERVER_CLIENTS} readers: "
+                   f"{len(hits)} from the hot plane ({_ms(hits)}), "
+                   f"{len(hops)} 307ed to Python ({_ms(hops)}); hot plane "
+                   f"{ {k: h2[k] - h1[k] for k in h2} }; the listings of "
+                   f"{HOT_DIRS + 1} directories hold all {listed}; DELETE "
+                   f"through Python ({'307ed' if del_hop else 'direct'}) "
+                   f"{del_status}, then GET 404")
+
+        # the CLI's compiled client loops
+        bench_f = _bench(phase, fleet, "-filer", faddr)
+        bench_n = _bench(phase, fleet, "-master", fleet.master,
+                         "-nativeClient")
+        log(phase, f"benchmark -filer {' '.join(HOT_BENCH)}: write "
+                   f"{bench_f['write']:.1f} req/s, read "
+                   f"{bench_f['read']:.1f} req/s; benchmark -nativeClient: "
+                   f"write {bench_n['write']:.1f} req/s, read "
+                   f"{bench_n['read']:.1f} req/s; 0 failed")
+
+        # SIGKILL during a PUT storm, then a restart on the directory
+        acked: dict[str, bytes] = {}
+        mu = threading.Lock()
+        stop = threading.Event()
+        srng = np.random.default_rng(seed + 1)
+        bodies = [srng.bytes(int(n)) for n in srng.integers(1, 16 * 1024,
+                                                            256)]
+
+        def storm(t):
+            conn = http.client.HTTPConnection("127.0.0.1", fport, timeout=30)
+            n = 0
+            try:
+                while not stop.is_set():
+                    path = f"/buckets/crash/c{t}/f{n:06d}.bin"
+                    body = bodies[(t * 31 + n) % len(bodies)]
+                    n += 1
+                    try:
+                        status, _, _ = _request(conn, "PUT", path, body)
+                    except (OSError, http.client.HTTPException):
+                        return  # the server died mid-request: unacked
+                    if status == 201:
+                        with mu:
+                            acked[path] = body
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=storm, args=(t,))
+                   for t in range(SERVER_CLIENTS)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        while True:
+            with mu:
+                if len(acked) >= HOT_STORM_ACKS:
+                    break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"{phase}: the storm acked "
+                                     f"{len(acked)} PUTs")
+            time.sleep(0.01)
+        before_kill = _plane(vport)
+        h3 = _status(fport)["NativeHotPlane"]
+        proc = fleet.procs["server"][0]
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        stop.set()
+        for t in threads:
+            t.join()
+        hot_log = os.path.join(d, "filer", "filer-hot.log")
+        records = _hot_log_records(hot_log)
+        restart_s = start("server2")
+        with mu:
+            acked_now = dict(acked)
+        t0 = time.perf_counter()
+        lost = []
+
+        def check(conn, path):
+            status, body, _ = _request(conn, "GET", path)
+            if status != 200 or body != acked_now[path]:
+                lost.append((path, status))
+
+        _clients(fport, check, list(acked_now))
+        verify_s = time.perf_counter() - t0
+        if lost:
+            raise AssertionError(f"{phase}: {len(lost)} of {len(acked_now)} "
+                                 f"acknowledged PUTs lost: {lost[:5]}")
+        log(phase, f"SIGKILL during a PUT storm of {SERVER_CLIENTS} clients "
+                   f"after {len(acked_now)} acknowledged PUTs (hot plane "
+                   f"{h3}; {records} records in its hot log); restarted on "
+                   f"the directory, the log replayed, in {restart_s:.2f} s; "
+                   f"every acknowledged PUT read back byte-exact in "
+                   f"{verify_s:.3f} s")
+
+        # ec.encode of every volume the writes filled: K1 at R = 4
+        vids = sorted(int(m.group(1)) for m in (
+            re.fullmatch(r"(\d+)\.dat", n) for n in os.listdir(d)) if m
+            and os.path.getsize(os.path.join(d, m.group(0))) > 8)
+        k0 = fleet.k1()
+        out, enc_s = fleet.shell("lock", *(f"ec.encode -volumeId {v}"
+                                           for v in vids), "unlock")
+        k1 = fleet.k1()
+        step = _k1_step(k0, k1)
+        if not step.get(4):
+            raise AssertionError(f"{phase}: ec.encode launched K1 by R "
+                                 f"{step}:\n{out}")
+        left = [v for v in vids if os.path.exists(os.path.join(d, f"{v}.dat"))]
+        if left:
+            raise AssertionError(f"{phase}: plain volumes {left} left after "
+                                 f"ec.encode:\n{out}")
+        hits2, hops2 = read_all(list(files) + list(large))
+        _clients(fport, check, list(acked_now))
+        if lost:
+            raise AssertionError(f"{phase}: after ec.encode {lost[:5]}")
+        h4 = _status(fport)["NativeHotPlane"]
+        log(phase, f"shell lock; ec.encode -volumeId {vids}; unlock: "
+                   f"{enc_s:.3f} s, K1 launches by R {step}; every file GET "
+                   f"byte-exact through the filer again: {len(hits2)} from "
+                   f"the hot plane ({_ms(hits2)}), {len(hops2)} 307ed "
+                   f"({_ms(hops2)}), and every acknowledged storm PUT; hot "
+                   f"plane {h4}")
+
+        by_r = fleet.k1()
+        planes = fleet.planes()
+        # the planes wrote these needles untagged: GETs of 4,096 B or more
+        # (the filer's reads of their chunks) ride sendfile
+        if not (before_kill[0] and before_kill[2] + planes[
+                f"127.0.0.1:{vport}"][2]):
+            raise AssertionError(f"{phase}: no GET rode sendfile: before "
+                                 f"the SIGKILL {before_kill}, after {planes}")
+        rcs = fleet.terminate()
+        if set(rcs.values()) != {0}:
+            raise AssertionError(f"{phase}: exit codes on SIGTERM {rcs}")
+        _modules_clean(phase, modules)
+        if os.path.exists(recovery.marker_path(d)):
+            raise AssertionError(f"{phase}: the dirty marker was not lifted")
+        log(phase, f"SIGTERM: exit 0, neither jax nor seaweedfs_tpu in "
+                   f"sys.modules. volume plane before the SIGKILL "
+                   f"{before_kill}, after the restart {planes}; files/s "
+                   f"{HOT_FILES / write_s:.0f}, GET hot {_ms(hits)}, 307ed "
+                   f"{_ms(hops)}, restart {restart_s:.2f} s, benchmark "
+                   f"-filer {bench_f}, -nativeClient {bench_n}; gf_xor by "
+                   f"R {dict(sorted(by_r.items()))}; phase wall "
+                   f"{time.perf_counter() - t_phase:.3f} s; nvidia-smi: "
+                   f"{smi}")
+        return dict(launches=sum(by_r.values()))
+    except BaseException:
+        log(phase, f"log tails:\n{fleet.log_tails()}")
+        raise
+    finally:
         fleet.close()
         rpc.reset_channels()
         shutil.rmtree(root)
@@ -5402,6 +5873,8 @@ def main(argv=None) -> int:
         got = cluster_phase(seed=6, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
         got = filer_phase(seed=7, workdir=args.workdir, card=card, smi=smi)
+        paths["gf_xor"]["launches"] += got["launches"]
+        got = hot_phase(seed=9, workdir=args.workdir, card=card, smi=smi)
         paths["gf_xor"]["launches"] += got["launches"]
 
     rows = []

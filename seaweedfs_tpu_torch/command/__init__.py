@@ -11,10 +11,15 @@ filer.remote.sync, filer.remote.gateway), shell, upload, download,
 benchmark, version. The volume servers' erasure coder is the CUDA card by
 default (`-coder cuda`): without one they fail at start, and nothing
 falls back to the CPU unless `-coder cpu` (numpy) or `-coder native`
-(g++) asks for it. The master's Raft group (`-peers`), the compiled
-benchmark client (`benchmark -filer`, `-nativeClient`) and the offline
-tools are not part of the port yet: their commands and flags fail at
-start, naming the ROADMAP.md item that will port them (`DEFERRED`).
+(g++) asks for it. `volume` and `server` serve needles from the C++
+data plane (native/dataplane.cpp, built with g++ at first use) wherever
+it builds and no JWT key or whitelist guard is set, as the reference's
+`-nativeDataPlane auto` does; `on` fails at start with g++'s error where
+it cannot build, `off` keeps the Python plane. `server -filer` runs the
+filer's C++ hot plane over that volume plane. The master's Raft group
+(`-peers`) and the offline tools are not part of the port yet: their
+commands and flags fail at start, naming the ROADMAP.md item that will
+port them (`DEFERRED`).
 The tools that follow a filer's metadata stream run until SIGINT or
 SIGTERM, and then exit 0; a stream the filer drops is followed again from
 the last event.
@@ -94,8 +99,12 @@ def main(argv=None) -> int:
                          "fails at start)")
     vp.add_argument("-nativeDataPlane", dest="native", default="auto",
                     nargs="?", const="on", choices=["auto", "on", "off"],
-                    help="the C++ needle data plane is not part of the "
-                         "port: auto = off, on fails at start")
+                    help="serve needle GET/PUT/DELETE from the C++ data "
+                         "plane on the public port. auto = on when the "
+                         "toolchain builds it and no JWT/guard is "
+                         "configured (those paths stay Python); on = "
+                         "fail at start where it cannot build; bare flag "
+                         "= on")
     vp.add_argument("-largeDisk", action="store_true",
                     help="5-byte needle offsets: 8TB volume cap instead of "
                          "32GB (the reference's 5BytesOffset build tag as a "
@@ -141,8 +150,8 @@ def main(argv=None) -> int:
     sp.add_argument("-volume.nativeDataPlane", dest="volume_native",
                     default="auto", nargs="?", const="on",
                     choices=["auto", "on", "off"],
-                    help="the C++ needle data plane is not part of the "
-                         "port: auto = off, on fails at start")
+                    help="C++ needle data plane on the volume public port "
+                         "(as volume -nativeDataPlane)")
 
     shp = sub.add_parser("shell", help="admin shell (commands on stdin)")
     shp.add_argument("-master", default="localhost:9333")
@@ -240,12 +249,12 @@ def main(argv=None) -> int:
                     help="files per master assign (fid _delta suffixes); "
                          "0 = 1")
     bp.add_argument("-nativeClient", action="store_true",
-                    help="the compiled C++ client loop (not part of the "
-                         "port yet: fails at start)")
+                    help="drive PUT/GET with the compiled C++ client loop "
+                         "(batched assigns, keepalive)")
     bp.add_argument("-filer", default="",
                     help="whole-object PUT/GET through this filer with the "
-                         "compiled client (not part of the port yet: a "
-                         "non-empty value fails at start)")
+                         "compiled client (the filer's C++ hot plane under "
+                         "server -filer)")
 
     wd = sub.add_parser("webdav", help="run a WebDAV gateway")
     wd.add_argument("-port", type=int, default=7333)
@@ -321,6 +330,28 @@ def main(argv=None) -> int:
 
         _types.set_large_disk(True)
     return _run(opts)
+
+
+def _use_native_plane(cmd: str, mode: str) -> bool:
+    """The -nativeDataPlane rule: auto = the C++ plane wherever g++ builds
+    it (the reference's default), off = the Python plane, on = the C++
+    plane or a failed start that carries g++'s own message."""
+    if mode == "off":
+        return False
+    from ..native import NativeBuildError
+    from ..native.dataplane import load_library
+
+    try:
+        load_library()
+    except NativeBuildError as e:
+        if mode == "on":
+            raise SystemExit(f"{cmd}: -nativeDataPlane on: {e}")
+        from ..utils import glog
+
+        glog.warning(f"{cmd}: the C++ data plane does not build here, "
+                     f"the Python plane serves: {e}")
+        return False
+    return True
 
 
 def _wait_forever():
@@ -644,14 +675,14 @@ def _run(opts) -> int:
 
         coder = (None if opts.coder == "cuda"
                  else new_coder(backend=opts.coder))
+        use_native = _use_native_plane("server", opts.volume_native)
         try:
             # the volume server first: without a card it fails before the
             # master binds anything
             vsrv = VolumeServer(directories=opts.dir.split(","),
                                 master=f"{opts.ip}:{opts.master_port}",
                                 ip=opts.ip, port=opts.volume_port,
-                                coder=coder,
-                                native=opts.volume_native == "on")
+                                coder=coder, native=use_native)
         except (RuntimeError, NotImplementedError) as e:
             raise SystemExit(f"server: {e}")
         fs = None
@@ -670,6 +701,10 @@ def _run(opts) -> int:
         vsrv.start()
         stoppers = [vsrv.stop, ms.stop]
         if fs is not None:
+            # co-located volume plane (it exists once the volume server
+            # started): the filer's C++ hot path for whole-object PUT/GET
+            # under /buckets/
+            fs.native_volume_plane = vsrv.native_plane
             fs.start()
             stoppers.insert(0, fs.stop)
         if opts.s3:
@@ -829,10 +864,7 @@ def _run(opts) -> int:
     if opts.cmd == "benchmark":
         from .benchmark import run_benchmark
 
-        try:
-            run_benchmark(opts)
-        except NotImplementedError as e:
-            raise SystemExit(f"benchmark: {e}")
+        run_benchmark(opts)
         return 0
 
     if opts.cmd == "upload":
@@ -887,6 +919,10 @@ def _run(opts) -> int:
         sec = load_security_config()
         guard = Guard(whitelist=sec["whitelist"]) if sec["whitelist"] \
             else None
+        if opts.native == "auto" and (sec["write_key"] or guard is not None):
+            use_native = False  # python handlers own auth: skip the probe
+        else:
+            use_native = _use_native_plane("volume", opts.native)
         try:
             vsrv = VolumeServer(directories=dirs, master=opts.mserver,
                                 ip=opts.ip, port=opts.port,
@@ -897,7 +933,7 @@ def _run(opts) -> int:
                                                  if opts.index != "memory"
                                                  else "memory"),
                                 write_jwt_key=sec["write_key"],
-                                guard=guard, native=opts.native == "on")
+                                guard=guard, native=use_native)
         except (RuntimeError, NotImplementedError) as e:
             # no CUDA device for -coder cuda, or an option the port does
             # not carry: fail at start, never fall back

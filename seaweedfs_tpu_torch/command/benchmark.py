@@ -9,8 +9,10 @@ connections (one per worker thread) and can amortize master assigns over
 (Assign count=N; needle.go ParsePath:117-142 semantics).
 
 `-filer` and `-nativeClient` run the compiled client loop of the C++ data
-plane, which is not part of the port yet: both refuse before any
-request, naming its ROADMAP.md item.
+plane (native/dataplane.cpp swdp_bench, through
+native.dataplane.bench_loop): `-filer` PUTs and GETs whole objects under
+/buckets/ through a filer (its C++ hot plane under `server -filer`),
+`-nativeClient` drives the volume servers after batched assigns.
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ import numpy as np
 
 from ..operation import assign
 from ..wdclient import MasterClient
-
-ROADMAP_NATIVE = "ROADMAP.md A2c (native C++ data plane)"
 
 _tl = threading.local()
 
@@ -92,14 +92,10 @@ def _percentiles(lat: np.ndarray) -> str:
 
 
 def run_benchmark(opts) -> dict:
-    for flag, on in (("-filer", getattr(opts, "filer", "")),
-                     ("-nativeClient", getattr(opts, "nativeClient", False))):
-        if on:
-            # both drive the reference's compiled client loop
-            # (native/dataplane.py bench_loop)
-            raise NotImplementedError(
-                f"benchmark {flag} is not part of the PyTorch port yet: "
-                f"{ROADMAP_NATIVE}")
+    if getattr(opts, "filer", ""):
+        return run_benchmark_filer(opts)
+    if getattr(opts, "nativeClient", False):
+        return run_benchmark_native(opts)
     n, size, conc = opts.n, opts.size, opts.c
     batch = max(1, int(getattr(opts, "assignBatch", 0) or 1))
     master = opts.master
@@ -183,6 +179,135 @@ def run_benchmark(opts) -> dict:
               "failed": len(written) - total_ok}
         print(f"\nread: {rd['requests_per_sec']:.1f} req/s, {dt_r:.2f} s "
               f"total, {rd['failed']} failed")
+        print(f"read latency: {_percentiles(lat_r)}")
+        results["read"] = rd
+    return results
+
+
+def run_benchmark_filer(opts) -> dict:
+    """Benchmark whole-object PUT/GET THROUGH THE FILER (the plain
+    benchmark drives the volume servers directly; this variant goes
+    through filer paths and is served by the C++ filer hot plane when
+    `server -filer` runs with it)."""
+    import ctypes
+
+    from ..native.dataplane import bench_loop
+
+    n, size, conc = opts.n, opts.size, opts.c
+    addr = opts.filer
+    payload = secrets.token_bytes(size)
+    run_id = secrets.token_hex(4)
+    # per-worker directories keep no single directory pathological
+    jobs = []
+    per = n // conc
+    for w in range(conc):
+        count = per if w < conc - 1 else n - per * (conc - 1)
+        jobs.append([f"buckets/bench-{run_id}/w{w:02d}/f{i:07d}"
+                     for i in range(count)])
+
+    def run_phase(is_put: bool):
+        lats = []
+        oks = [0] * len(jobs)
+
+        def worker(i):
+            lat = (ctypes.c_int64 * len(jobs[i]))()
+            oks[i] = bench_loop(addr, jobs[i],
+                                payload if is_put else None, lat)
+            lats.append(np.ctypeslib.as_array(lat).copy())
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=conc) as ex:
+            list(ex.map(worker, range(len(jobs))))
+        dt = time.perf_counter() - t0
+        lat_s = np.concatenate(lats) / 1e9 if lats else np.zeros(0)
+        return sum(oks), dt, lat_s
+
+    ok_w, dt_w, lat_w = run_phase(True)
+    wr = {"requests_per_sec": n / dt_w, "total_s": dt_w, "failed": n - ok_w,
+          "mb_per_sec": n * size / dt_w / 1e6, **_pcts(lat_w)}
+    print(f"\nfiler write: {wr['requests_per_sec']:.1f} req/s, "
+          f"{wr['mb_per_sec']:.2f} MB/s, {dt_w:.2f} s total, "
+          f"{wr['failed']} failed (via {addr})")
+    print(f"write latency: {_percentiles(lat_w)}")
+    results = {"write": wr}
+    if not getattr(opts, "skipRead", False):
+        ok_r, dt_r, lat_r = run_phase(False)
+        rd = {"requests_per_sec": n / dt_r, "total_s": dt_r,
+              "failed": n - ok_r, **_pcts(lat_r)}
+        print(f"\nfiler read: {rd['requests_per_sec']:.1f} req/s, "
+              f"{dt_r:.2f} s total, {rd['failed']} failed")
+        print(f"read latency: {_percentiles(lat_r)}")
+        results["read"] = rd
+    return results
+
+
+def run_benchmark_native(opts) -> dict:
+    """Compiled-client benchmark: assigns batched through the master, then
+    the C++ keepalive loop (native/dataplane.cpp swdp_bench) drives the
+    PUT/GET hot loops — the counterpart of the reference's Go client."""
+    import ctypes
+
+    from ..native.dataplane import bench_loop
+
+    n, size, conc = opts.n, opts.size, opts.c
+    # native client defaults to batched assigns (Go-client parity); an
+    # explicit -assignBatch value (incl. 1) is honored
+    batch = max(1, int(getattr(opts, "assignBatch", 0) or 64))
+    master = opts.master
+    payload = secrets.token_bytes(size)
+
+    # plan: reserve all fids up front (count=N assigns), grouped by server
+    by_addr: dict[str, list[str]] = {}
+    got = 0
+    while got < n:
+        todo = min(batch, n - got)
+        a = assign(master, count=todo, collection=opts.collection)
+        if a.error:
+            raise RuntimeError(a.error)
+        fl = by_addr.setdefault(a.url, [])
+        fl.append(a.fid)
+        fl.extend(f"{a.fid}_{j}" for j in range(1, todo))
+        got += todo
+
+    # split each server's list across conc workers
+    jobs = []
+    for addr, fl in by_addr.items():
+        per = max(1, len(fl) // conc)
+        for i in range(0, len(fl), per):
+            jobs.append((addr, fl[i:i + per]))
+
+    def run_phase(is_put: bool):
+        lats = []
+        oks = [0] * len(jobs)
+
+        def worker(i):
+            addr, fl = jobs[i]
+            lat = (ctypes.c_int64 * len(fl))()
+            oks[i] = bench_loop(addr, fl, payload if is_put else None, lat)
+            lats.append(np.ctypeslib.as_array(lat).copy())
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=conc) as ex:
+            list(ex.map(worker, range(len(jobs))))
+        dt = time.perf_counter() - t0
+        lat_s = np.concatenate(lats) / 1e9 if lats else np.zeros(0)
+        return sum(oks), dt, lat_s
+
+    ok_w, dt_w, lat_w = run_phase(True)
+    wr = {"requests_per_sec": n / dt_w, "total_s": dt_w, "failed": n - ok_w,
+          "mb_per_sec": n * size / dt_w / 1e6, **_pcts(lat_w)}
+    print(f"\nwrite: {wr['requests_per_sec']:.1f} req/s, "
+          f"{wr['mb_per_sec']:.2f} MB/s, {dt_w:.2f} s total, "
+          f"{wr['failed']} failed (native client, assign batch {batch})")
+    print(f"write latency: {_percentiles(lat_w)}")
+    results = {"write": wr}
+
+    if not getattr(opts, "skipRead", False):
+        ok_r, dt_r, lat_r = run_phase(False)
+        rd = {"requests_per_sec": n / dt_r, "total_s": dt_r,
+              "failed": n - ok_r, **_pcts(lat_r)}
+        print(f"\nread: {rd['requests_per_sec']:.1f} req/s, {dt_r:.2f} s "
+              f"total, {rd['failed']} failed (native client)")
         print(f"read latency: {_percentiles(lat_r)}")
         results["read"] = rd
     return results

@@ -50,6 +50,21 @@ class Filer:
         # optional external publisher (notification.toml; filer_notify.go's
         # Queue.SendMessage side of NotifyUpdateEvent) — set by the server
         self.notification_queue = None
+        # optional mutation hook (path, recursive) — the native filer hot
+        # plane registers one so python-side mutations (S3 gateway,
+        # DELETE, rename) invalidate its path cache (see
+        # native/dataplane.cpp filer hot plane). Called AFTER the store
+        # mutation commits.
+        self.on_mutate = None
+
+    def _mutated(self, path: str, recursive: bool = False) -> None:
+        if self.on_mutate is not None:
+            try:
+                self.on_mutate(path, recursive)
+            # lint: allow-broad-except(the store mutation has committed; a
+            # failed invalidation must not fail it, as in the reference)
+            except Exception:  # noqa: BLE001
+                pass
 
     # -- events (filer_notify.go:20 NotifyUpdateEvent) ---------------------
 
@@ -142,6 +157,7 @@ class Filer:
         if old is not None and old.is_directory and not entry.is_directory:
             raise FilerError(f"{entry.full_path} is a directory")
         self.store.insert_entry(entry)
+        self._mutated(entry.full_path)
         self._notify(entry.parent, old, entry,
                      from_other_cluster=from_other_cluster)
 
@@ -161,6 +177,7 @@ class Filer:
         if old is None:
             raise NotFound(entry.full_path)
         self.store.update_entry(entry)
+        self._mutated(entry.full_path)
         self._notify(entry.parent, old, entry,
                      from_other_cluster=from_other_cluster)
 
@@ -180,6 +197,7 @@ class Filer:
         if is_delete_data:
             fids.extend(c.file_id for c in entry.chunks)
         self.store.delete_entry(path)
+        self._mutated(path, recursive=entry.is_directory)
         self._notify(entry.parent, entry, None, delete_chunks=is_delete_data,
                      from_other_cluster=from_other_cluster)
         return fids
@@ -228,6 +246,8 @@ class Filer:
                       hard_link_counter=entry.hard_link_counter)
         self.store.delete_entry(old_path)
         self.store.insert_entry(moved)
+        self._mutated(old_path, recursive=entry.is_directory)
+        self._mutated(new_path, recursive=entry.is_directory)
         # the event sits in the directory the entry left, and names the
         # one it entered (filer_notify.go NotifyUpdateEvent); the
         # reference files it under the new directory, so a subscriber

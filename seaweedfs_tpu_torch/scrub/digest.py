@@ -94,6 +94,8 @@ def volume_digest_entries(v) -> list[DigestEntry]:
     the stored CRC read from disk plus their replica-epoch tag (one
     bounded pread recovers both — the tag is the fixed-width suffix of
     the body, immediately before the CRC); tombstoned ids carry (0, -1)."""
+    if v.native is not None:
+        v.sync_native()  # absorb C++-plane appends first
     entries: list[DigestEntry] = []
     for key, nv in list(v.nm):
         if nv.offset == 0 or types.size_is_deleted(nv.size):

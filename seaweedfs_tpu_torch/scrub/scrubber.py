@@ -559,6 +559,8 @@ class Scrubber:
                 v._sync_buffers()  # sweep reads the file under group commit
             except OSError:
                 return  # surfaced to writers by their own flush
+        if v.native is not None:
+            v.sync_native()
         revision = v.super_block.compaction_revision
         if cur.revision != revision:
             # compaction rewrote every offset — but a scrub-aware vacuum

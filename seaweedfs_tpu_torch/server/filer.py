@@ -16,11 +16,16 @@ exactly its declared size or an error; CacheRemoteObjectToLocalCluster
 writes it into the filer's volumes. Every event is published to the queue
 notification.toml enables.
 
-Parts of the reference stay out of the port, and none falls back: the C++
-filer hot plane (`native_volume_plane=`) fails at construction, naming
-the native data plane's ROADMAP.md item; so do a filer.toml section that
-enables a network store (filerstore.WIRE_STORES) and the HTML listing
-(`?ui`).
+Given the co-located volume server's C++ plane (`native_volume_plane=`,
+as `server -filer` passes it), the filer runs the C++ hot plane on its
+public port: whole-object PUTs and GETs under /buckets/ are served from
+C++ straight off the volume plane, with their entries logged to
+`filer-hot.log` and absorbed into the store; everything else is
+307-redirected to the Python listener on the admin port.
+
+Parts of the reference stay out of the port, and none falls back: a
+filer.toml section that enables a network store (filerstore.WIRE_STORES)
+and the HTML listing (`?ui`) fail, naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -80,7 +85,6 @@ CHUNK_SIZE = 4 * 1024 * 1024  # maxMB default (command/filer.go)
 # fids leased from the master per Assign RPC
 FID_LEASE_BATCH = 128
 
-ROADMAP_NATIVE = "ROADMAP.md A2c (native C++ data plane)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
 
 
@@ -102,10 +106,6 @@ class FilerServer:
                  replication: str = "", chunk_size: int = CHUNK_SIZE,
                  peers: list[str] | None = None, filer_group: str = "",
                  native_volume_plane=None):
-        if native_volume_plane is not None:
-            raise NotImplementedError(_not_ported(
-                "the C++ filer hot plane (native_volume_plane=)",
-                ROADMAP_NATIVE))
         self.ip = ip
         self.port = port
         self.store_dir = store_dir
@@ -231,6 +231,22 @@ class FilerServer:
         self._announce_stop = threading.Event()
         self._announce_thread: threading.Thread | None = None
         self._subscribed_peers: set[str] = set()
+        # native filer hot plane (C++ PUT/GET of whole objects under
+        # /buckets/ straight off the CO-LOCATED volume plane — `weed
+        # server` wires its volume plane in here). See the design note in
+        # native/dataplane.cpp "filer hot plane".
+        self.native_volume_plane = native_volume_plane
+        self.hot_plane = None
+        self.admin_port = port  # public port when no hot plane
+        self._hot_lock = threading.Lock()
+        self._hot_mark = 0
+        # call-stack-scoped (NOT process-global): a genuine mutation on
+        # another thread must still invalidate the hot map while the
+        # absorber thread replays log records through create_entry
+        self._hot_absorbing = threading.local()
+        self._hot_log_corrupt = False
+        self._hot_stop = threading.Event()
+        self._hot_threads: list[threading.Thread] = []
         self._started_at = time.time()
 
     def _start_aggregator(self) -> None:
@@ -308,9 +324,23 @@ class FilerServer:
         from ..security.tls import load_http_server_context
 
         https_ctx = load_http_server_context("filer")
-        self._http_server = TunedThreadingHTTPServer(
-            ("", self.port), _make_http_handler(self),
-            ssl_context=https_ctx)
+        http_port = self.port
+        # the C++ hot plane speaks plain HTTP only — with TLS configured
+        # the python listener owns the encrypted public port and
+        # whole-object serving uses the buffered path
+        if self.native_volume_plane is not None and https_ctx is None:
+            try:
+                http_port = self._start_hot_plane()
+            except Exception as e:
+                glog.warning(f"filer hot plane unavailable: {e}")
+                http_port = self.port
+        if self._http_server is None:
+            # _start_hot_plane binds the admin listener itself (it must
+            # know the REAL admin port before the C++ plane learns its
+            # redirect target); this path is hot-plane-off / fallback
+            self._http_server = TunedThreadingHTTPServer(
+                ("", http_port), _make_http_handler(self),
+                ssl_context=https_ctx)
         threading.Thread(target=self._http_server.serve_forever,
                          daemon=True).start()
         self._start_aggregator()
@@ -319,7 +349,9 @@ class FilerServer:
             threading.Thread(target=self._meta_ring_loop, daemon=True,
                              name="filer-meta-ring").start()
         glog.info(f"filer started on {self.address} (grpc :{self.grpc_port})"
-                  + (" (https)" if https_ctx is not None else ""))
+                  + (" (https)" if https_ctx is not None else "")
+                  + (f" (native hot plane, admin :{self.admin_port})"
+                     if self.hot_plane else ""))
 
     def stop(self) -> None:
         self._announce_stop.set()
@@ -337,6 +369,13 @@ class FilerServer:
             except Exception as err:
                 # master already gone: epoch churn, not correctness
                 glog.v(1, f"meta ring polite leave: {err}")
+        self._hot_stop.set()
+        if self.hot_plane is not None:
+            self.hot_plane.stop()
+        for t in self._hot_threads:
+            t.join(timeout=5)
+        if self.hot_plane is not None:
+            self._absorb_hot_log()  # drain acknowledged PUTs to the store
         if self.meta_aggregator is not None:
             self.meta_aggregator.close()
         if self._http_server:
@@ -653,6 +692,211 @@ class FilerServer:
             "pendingRenameIntents": len(self._load_intents()),
             "ensuredParentDirs": len(self._ensured_dirs),
         }
+
+    # -- native hot plane --------------------------------------------------
+
+    def _hot_log_path(self) -> str:
+        import os
+
+        base = self.store_dir or "."
+        os.makedirs(base, exist_ok=True)
+        return os.path.join(base, "filer-hot.log")
+
+    def _start_hot_plane(self) -> int:
+        """Bind the C++ plane on the public port, move python to the admin
+        port. -> the port python should bind."""
+        import os
+
+        from ..native import NativeFilerPlane
+
+        log_path = self._hot_log_path()
+        # a previous run may have crashed with acknowledged-but-unabsorbed
+        # PUTs in the log: absorb them BEFORE truncating for the new plane
+        if os.path.exists(log_path) and os.path.getsize(log_path):
+            self._hot_mark = 0
+            self._absorb_hot_log(log_path=log_path)
+            if self._hot_log_corrupt:
+                # records past the corruption point were never absorbed:
+                # truncating would silently discard acked writes. Keep
+                # the bytes for forensics/manual recovery.
+                aside = log_path + ".corrupt"
+                os.replace(log_path, aside)
+                glog.error(f"corrupt hot log preserved at {aside}")
+        open(log_path, "wb").close()
+        self._hot_mark = 0
+        self._hot_log_corrupt = False  # fresh log: clear any replay alarm
+        # high-port guard: a filer on e.g. :57000 must not derive an
+        # admin port past 65535 (that crashed the whole server)
+        self.admin_port = rpc.derived_admin_port(self.port)
+        # bind the python admin listener BEFORE the C++ plane learns its
+        # redirect target: the deterministic +11000 port can be taken by
+        # another process (volume.py's start has the same fallback), and
+        # a 307 target must never point at a port we failed to bind
+        try:
+            self._http_server = TunedThreadingHTTPServer(
+                ("", self.admin_port), _make_http_handler(self))
+        except OSError:
+            self._http_server = TunedThreadingHTTPServer(
+                ("", 0), _make_http_handler(self))
+            self.admin_port = self._http_server.server_address[1]
+        try:
+            self.hot_plane = NativeFilerPlane(
+                "", self.port, self.admin_port,
+                self.native_volume_plane.plane_id, log_path,
+                max_body=min(self.chunk_size, 4 << 20))
+        except Exception:
+            # plane failed AFTER the admin bind: release it so the
+            # fallback path can bind the PUBLIC port instead
+            self._http_server.server_close()
+            self._http_server = None
+            raise
+        self.filer.on_mutate = self._on_python_mutation
+        t1 = threading.Thread(target=self._lease_loop, daemon=True,
+                              name="filer-hot-leases")
+        t2 = threading.Thread(target=self._absorb_loop, daemon=True,
+                              name="filer-hot-absorber")
+        self._hot_threads = [t1, t2]
+        t1.start()
+        t2.start()
+        return self.admin_port
+
+    def _on_python_mutation(self, path: str, recursive: bool) -> None:
+        if self.hot_plane is None or getattr(self._hot_absorbing, "active",
+                                             False):
+            return  # absorption re-creates hot entries; keep their cache
+        if recursive:
+            self.hot_plane.invalidate_prefix(path)
+        else:
+            self.hot_plane.invalidate(path)
+
+    def _lease_loop(self) -> None:
+        """Keep the plane stocked with fid blocks (batched assigns)."""
+        from ..operation import assign
+        from ..storage.file_id import parse_file_id
+
+        low, batch = 16384, 8192
+        while not self._hot_stop.is_set():
+            try:
+                if self.hot_plane.lease_remaining() < low:
+                    a = assign(self.master, count=batch,
+                               collection=self.collection,
+                               replication=self.replication)
+                    if not a.error:
+                        fid = parse_file_id(a.fid)
+                        self.hot_plane.add_lease(
+                            fid.volume_id, fid.key, fid.cookie,
+                            max(1, int(a.count or batch)))
+                        continue  # refill until above the low-water mark
+            except Exception as e:
+                glog.v(1, f"hot lease refill: {e}")
+            self._hot_stop.wait(0.02)
+
+    def _absorb_loop(self) -> None:
+        while not self._hot_stop.is_set():
+            try:
+                self._absorb_hot_log()
+            except Exception as e:
+                glog.warning(f"hot log absorb: {e}")
+            self._hot_stop.wait(0.05)
+
+    def hot_sync(self) -> None:
+        """Absorb any pending hot-log records so metadata reads see every
+        acknowledged native PUT (read-your-writes across planes)."""
+        if self.hot_plane is not None:
+            self._absorb_hot_log()
+
+    def _absorb_hot_log(self, log_path: str | None = None) -> None:
+        """Tail the C++ plane's entry log into the real store (the
+        filer-side analogue of NeedleMap.catchup_from_idx). Emits the
+        normal metadata events at absorption time."""
+        import os
+        import struct as _struct
+
+        path = log_path or (self.hot_plane.log_path if self.hot_plane
+                            else None)
+        if path is None or self._hot_log_corrupt:
+            return  # corrupt: halted (and the plane stood down) — don't
+            #         keep re-reading an ever-growing tail every poll
+        try:  # lock-free fast path: nothing new appended
+            if os.path.getsize(path) <= self._hot_mark:
+                return
+        except OSError:
+            return
+        with self._hot_lock:
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                return
+            if size <= self._hot_mark:
+                return
+            with open(path, "rb") as f:
+                f.seek(self._hot_mark)
+                buf = f.read(size - self._hot_mark)
+            if self._hot_log_corrupt:
+                return
+            HDR = 41
+            off = 0
+            self._hot_absorbing.active = True
+            try:
+                while off + HDR <= len(buf):
+                    (op, plen, mlen, vid, key, cookie, fsize, crc,
+                     mtime_ns) = _struct.unpack_from("<BHHIQIQIQ", buf, off)
+                    # the C++ writer enforces plen < 4096 and mlen < 256,
+                    # so out-of-range lengths are corruption (not a torn
+                    # tail) — without this, a garbage length would stall
+                    # absorption forever while PUTs keep being acked
+                    if op != 1 or plen >= 4096 or mlen >= 256:
+                        # full header available with a bad op byte is NOT
+                        # a torn tail (the C++ plane truncates failed
+                        # writes): the log itself is corrupt. Alarm and
+                        # stand the plane down — it must stop ACKING PUTs
+                        # whose metadata can never be absorbed.
+                        self._hot_log_corrupt = True
+                        if self.hot_plane is not None:
+                            self.hot_plane.disable_log()
+                        glog.error(
+                            f"hot log corrupt at offset "
+                            f"{self._hot_mark + off} (op={op}); absorption "
+                            f"halted and native PUTs disabled — restart "
+                            f"the filer to resync")
+                        break
+                    end = off + HDR + plen + mlen
+                    if end > len(buf):
+                        break  # torn tail: wait for the rest
+                    p = buf[off + HDR:off + HDR + plen].decode(
+                        errors="replace")
+                    mime = buf[off + HDR + plen:end].decode(errors="replace")
+                    self._absorb_one(p, vid, key, cookie, fsize, crc,
+                                     mtime_ns, mime)
+                    off = end
+            finally:
+                self._hot_absorbing.active = False
+            self._hot_mark += off
+
+    def _absorb_one(self, path: str, vid: int, key: int, cookie: int,
+                    fsize: int, crc: int, mtime_ns: int, mime: str) -> None:
+        from ..storage.file_id import FileId
+
+        fid = str(FileId(vid, key, cookie))
+        old_fids: list[str] = []
+        try:
+            old = self.filer.find_entry(path)
+            old_fids = [c.file_id for c in old.chunks]
+        except NotFound:
+            pass
+        chunk = filer_pb2.FileChunk(
+            file_id=fid, size=fsize, modified_ts_ns=mtime_ns,
+            e_tag=f"{crc & 0xFFFFFFFF:08x}")
+        entry = Entry(
+            full_path=normalize(path),
+            attr=Attr(mtime=mtime_ns // 1_000_000_000,
+                      crtime=mtime_ns // 1_000_000_000,
+                      mode=0o660, mime=mime),
+            chunks=[chunk],
+        )
+        self.filer.create_entry(entry)
+        if old_fids and old_fids != [fid]:
+            self._gc_chunks(old_fids)
 
     # -- chunk IO ----------------------------------------------------------
 
@@ -1139,6 +1383,7 @@ class FilerGrpc:
             context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(err))
 
     def LookupDirectoryEntry(self, request, context):
+        self.srv.hot_sync()
         path = request.directory.rstrip("/") + "/" + request.name
         self._shard_gate(context,
                          self.srv.shard_check_entry(path, lenient=True))
@@ -1149,6 +1394,7 @@ class FilerGrpc:
         return filer_pb2.LookupDirectoryEntryResponse(entry=e.to_pb())
 
     def ListEntries(self, request, context):
+        self.srv.hot_sync()
         self._shard_gate(context,
                          self.srv.shard_check_dir(request.directory))
         limit = request.limit or 1024
@@ -1158,6 +1404,7 @@ class FilerGrpc:
             yield filer_pb2.ListEntriesResponse(entry=e.to_pb())
 
     def CreateEntry(self, request, context):
+        self.srv.hot_sync()
         e = Entry.from_pb(request.directory, request.entry)
         self._shard_gate(context, self.srv.shard_check_entry(e.full_path))
         try:
@@ -1175,6 +1422,7 @@ class FilerGrpc:
         return filer_pb2.CreateEntryResponse()
 
     def UpdateEntry(self, request, context):
+        self.srv.hot_sync()
         e = Entry.from_pb(request.directory, request.entry)
         self._shard_gate(context, self.srv.shard_check_entry(e.full_path))
         try:
@@ -1185,6 +1433,7 @@ class FilerGrpc:
         return filer_pb2.UpdateEntryResponse()
 
     def AppendToEntry(self, request, context):
+        self.srv.hot_sync()
         path = request.directory.rstrip("/") + "/" + request.entry_name
         self._shard_gate(context, self.srv.shard_check_entry(path))
         try:
@@ -1203,6 +1452,7 @@ class FilerGrpc:
         return filer_pb2.AppendToEntryResponse()
 
     def DeleteEntry(self, request, context):
+        self.srv.hot_sync()
         path = request.directory.rstrip("/") + "/" + request.name
         self._shard_gate(context, self.srv.shard_check_entry(path))
         try:
@@ -1219,6 +1469,7 @@ class FilerGrpc:
         return filer_pb2.DeleteEntryResponse()
 
     def AtomicRenameEntry(self, request, context):
+        self.srv.hot_sync()
         old = request.old_directory.rstrip("/") + "/" + request.old_name
         new = request.new_directory.rstrip("/") + "/" + request.new_name
         try:
@@ -1237,6 +1488,7 @@ class FilerGrpc:
         AtomicRenameEntry, but each moved entry streams back as a rename
         event so subscribers (mounts, sync loops) can track a large
         directory move incrementally."""
+        self.srv.hot_sync()
         old = request.old_directory.rstrip("/") + "/" + request.old_name
         new = request.new_directory.rstrip("/") + "/" + request.new_name
         ring = self.srv.ring_snapshot() if self.srv.meta_shard else None
@@ -1507,6 +1759,7 @@ def _make_http_handler(srv: FilerServer):
             if path == "/status":
                 from ..utils.stats import http_pool_stats, qos_stats
 
+                hot = srv.hot_plane.stats() if srv.hot_plane else None
                 return self._json({
                     **status_base(srv._started_at),
                     "Version": "seaweedfs-tpu",
@@ -1523,9 +1776,8 @@ def _make_http_handler(srv: FilerServer):
                         "remaining": srv.fid_pool.remaining(),
                         "batch": srv.fid_pool.batch,
                     },
-                    # the reference's C++ hot plane's stats; the port
-                    # carries no hot plane, so the key is always null
-                    "NativeHotPlane": None,
+                    # the C++ hot plane's stats (null without one)
+                    "NativeHotPlane": hot,
                     "Trace": trace.STORE.stats(),
                     # QoS plane: tenant buckets + rejections
                     "Qos": {
@@ -1536,6 +1788,7 @@ def _make_http_handler(srv: FilerServer):
                     # shard's ring picture + rename-intent recovery
                     "MetaShard": srv.meta_shard_status(),
                 })
+            srv.hot_sync()  # see native PUTs not yet absorbed
             with trace.span("filer.read", carrier=self.headers,
                             component="filer", server=srv.address,
                             path=path) as tsp:
@@ -1689,6 +1942,7 @@ def _make_http_handler(srv: FilerServer):
         def do_PUT(self):
             self._trace_id = ""
             path, q = self._path_q()
+            srv.hot_sync()  # ordering: older hot records absorb first
             with trace.span("filer.write", carrier=self.headers,
                             component="filer", server=srv.address,
                             path=path) as tsp:
@@ -1753,6 +2007,7 @@ def _make_http_handler(srv: FilerServer):
         def do_DELETE(self):
             self._trace_id = ""
             path, q = self._path_q()
+            srv.hot_sync()
             with trace.span("filer.delete", carrier=self.headers,
                             component="filer", server=srv.address,
                             path=path) as tsp:

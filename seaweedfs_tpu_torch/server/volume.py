@@ -9,10 +9,16 @@ copy, tail, scrub and the erasure-coding RPCs, whose shard math runs on
 the store's coder: the hand-written CUDA kernels by default, through the
 EC dispatch scheduler).
 
+With `native=True` the C++ data plane (native/dataplane.py) binds the
+public port and serves needle GET/PUT/DELETE itself; everything else
+(status pages, EC volumes, ranges it does not take, replicated and TTL
+volumes' writes) is 307-redirected to the Python listener on the admin
+port (public + 11000, or an ephemeral one when that is taken).
+
 Every RPC of the service is registered. Those whose dependencies are not
 part of the port yet answer UNIMPLEMENTED (HTTP: 501) with a message that
-names the ROADMAP.md item that will port them: tiering, Query, /ui, image resizing and the native C++ data plane (`native=True`
-raises here). A server without a reachable master
+names the ROADMAP.md item that will port them: tiering, Query, /ui and
+image resizing. A server without a reachable master
 keeps serving: the heartbeat retries and EC shard lookups cache an empty
 answer, so the local shards encode, serve degraded reads, rebuild and
 scrub on their own.
@@ -66,6 +72,7 @@ from ..utils.http import not_modified, parse_range, range_applies, url_for
 from ..utils.stats import (
     VOLUME_REPLICA_DELETE_FAILURES,
     VOLUME_SERVER_EC_ENCODE_BYTES,
+    VOLUME_SERVER_NATIVE_REQUESTS,
     VOLUME_SERVER_REQUEST_HISTOGRAM,
     VOLUME_SERVER_VOLUME_COUNTER,
     gather,
@@ -85,7 +92,6 @@ ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
 ROADMAP_QUERY = "ROADMAP.md A2d (query)"
 ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
 ROADMAP_IMAGES = "ROADMAP.md A2d (images)"
-ROADMAP_NATIVE = "ROADMAP.md A2c (native C++ data plane)"
 
 
 def _not_ported(what: str, item: str) -> str:
@@ -138,15 +144,32 @@ class VolumeServer:
                  guard=None, native: bool = False):
         self.write_jwt_key = write_jwt_key
         self.guard = guard  # IP whitelist (security.Guard) or None
-        # the reference's C++ data plane (native=True, or
-        # SEAWEEDFS_TPU_NATIVE=1 process-wide) is not part of the port:
-        # asking for it fails here instead of serving without it
+        # C++ data plane: serves needle GET/PUT/DELETE on the public port,
+        # 307s everything else to the Python listener on admin_port. Only
+        # meaningful when neither JWT auth nor an IP guard is configured
+        # (those checks live in the Python handlers).
+        # SEAWEEDFS_TPU_NATIVE=1 forces it on process-wide, =0 forces it
+        # off; unset respects the constructor argument.
         env_native = os.environ.get("SEAWEEDFS_TPU_NATIVE", "").lower()
         if env_native in ("1", "true", "on"):
             native = True
-        if native:
-            raise NotImplementedError(
-                _not_ported("the native C++ data plane", ROADMAP_NATIVE))
+        elif env_native in ("0", "false", "off"):
+            native = False
+        # the C++ plane speaks 16-byte idx entries only; in large-disk
+        # (5-byte offset) mode it could never serve a volume, so don't
+        # bind it at all — clients keep the direct python port. Under
+        # SWFS_HTTPS the public port must speak TLS, which the C++ plane
+        # does not: the python listener owns the (encrypted) data plane.
+        from ..utils.http import https_on
+
+        self.native_enabled = (bool(native) and not write_jwt_key
+                               and guard is None and types.OFFSET_SIZE == 4
+                               and not https_on())
+        self.native_plane = None
+        if self.native_enabled:
+            self.admin_port = rpc.derived_admin_port(port)
+        else:
+            self.admin_port = port
         if tier_backends:
             raise NotImplementedError(
                 _not_ported("tiered storage", ROADMAP_TIER))
@@ -169,6 +192,8 @@ class VolumeServer:
         self._http_server = None
         self._stop = threading.Event()
         self._hb_wake = threading.Event()
+        self._native_lock = threading.Lock()
+        self._native_vids: dict[int, bool] = {}
         # vid -> {shard_id: [addresses]} with expiry (store_ec.go:238 cache)
         self._ec_loc_cache: dict[int, tuple[float, dict[int, list[str]]]] = {}
         self._loc_cache: dict[int, tuple[float, list[str]]] = {}
@@ -239,9 +264,25 @@ class VolumeServer:
         from ..security.tls import load_http_server_context
 
         https_ctx = load_http_server_context("volume")
-        self._http_server = TunedThreadingHTTPServer(
-            ("", self.port), handler, ssl_context=https_ctx)
+        try:
+            self._http_server = TunedThreadingHTTPServer(
+                ("", self.admin_port), handler, ssl_context=https_ctx)
+        except OSError:
+            if not self.native_enabled:
+                raise
+            # deterministic admin port (public+11000) taken by another
+            # process: fall back to an ephemeral one — only redirects
+            # reference it, via the Location header
+            self._http_server = TunedThreadingHTTPServer(
+                ("", 0), handler, ssl_context=https_ctx)
+            self.admin_port = self._http_server.server_address[1]
         threading.Thread(target=self._http_server.serve_forever, daemon=True).start()
+        if self.native_enabled:
+            from ..native import NativeDataPlane
+
+            self.native_plane = NativeDataPlane(
+                "", self.port, self.admin_port, nthreads=8)
+            self._sync_native_registry()
         threading.Thread(target=self._heartbeat_loop, daemon=True).start()
         threading.Thread(target=self._check_with_master, daemon=True).start()
         report_s = float(os.environ.get("SWFS_QOS_REPORT_S", "0") or 0)
@@ -261,7 +302,59 @@ class VolumeServer:
             self.scrubber.report_suspect(vid)
         glog.info(f"volume server started on {self.address} "
                   f"(grpc :{self.grpc_port}"
-                  + (", https" if https_ctx is not None else "") + ")")
+                  + (", https" if https_ctx is not None else "")
+                  + (f", native data plane, admin :{self.admin_port})"
+                     if self.native_plane else ", python data plane)"))
+
+    def _sync_native_registry(self) -> None:
+        """Reconcile the C++ plane's volume registry with the store: add
+        new volumes, drop gone ones, track read-only flips. Called at
+        start, every heartbeat, and after volume lifecycle RPCs."""
+        plane = self.native_plane
+        if plane is None:
+            return
+        with self._native_lock:  # heartbeat + gRPC handlers race here
+            current: dict[int, object] = {}
+            for loc in self.store.locations:
+                current.update(loc.volumes)
+            registered = self._native_vids
+            for vid, v in current.items():
+                if v.is_tiered or v._dat is None or v._gc_frozen:
+                    # frozen: un-flushable buffered bytes — handing the
+                    # plane write authority (attach flushes) would raise
+                    continue
+                if types.OFFSET_SIZE != 4:
+                    # the C++ plane reads/writes 16-byte idx entries only;
+                    # large-disk (5-byte offset, 17B stride) volumes stay
+                    # on the python engine
+                    continue
+                writable = (not v.read_only
+                            and v.super_block.replica_placement.copy_count == 1
+                            and not str(v.ttl))
+                if vid not in registered:
+                    base = v.file_name()
+                    try:
+                        plane.add_volume(vid, base + ".dat", base + ".idx",
+                                         v.version, writable)
+                    except OSError:
+                        continue
+                    v.native_writable = writable
+                    v.attach_native(plane)
+                    registered[vid] = writable
+                elif registered[vid] != writable:
+                    plane.set_writable(vid, writable)
+                    v.native_writable = writable
+                    registered[vid] = writable
+            for vid in list(registered):
+                if vid not in current:
+                    plane.remove_volume(vid)
+                    registered.pop(vid)
+            # absorb C++-appended idx entries so nm counters (heartbeats,
+            # vacuum decisions) stay authoritative
+            for vid in registered:
+                v = current.get(vid)
+                if v is not None:
+                    v.sync_native()
 
     def _check_with_master(self) -> None:
         """checkWithMaster (volume_grpc_client_to_master.go:28-47): pull
@@ -296,6 +389,9 @@ class VolumeServer:
             self._http_server.shutdown()
         if self._grpc_server:
             self._grpc_server.stop(grace=0.5)
+        if self.native_plane is not None:
+            self.native_plane.stop()
+            self.native_plane = None
         self.store.close()
 
     # -- heartbeat client (volume_grpc_client_to_master.go:50-92) ----------
@@ -324,6 +420,7 @@ class VolumeServer:
 
         def requests():
             while not self._stop.is_set():
+                self._sync_native_registry()
                 yield self.store.collect_heartbeat()
                 self._hb_wake.wait(self.pulse_seconds)
                 self._hb_wake.clear()
@@ -340,6 +437,12 @@ class VolumeServer:
             VOLUME_SERVER_VOLUME_COUNTER.set(
                 sum(len(l.volumes) for l in self.store.locations)
             )
+            plane = self.native_plane  # stop() may null it concurrently
+            if plane is not None:
+                from ..utils.stats import HTTP_NATIVE_SENDFILE
+
+                VOLUME_SERVER_NATIVE_REQUESTS.set(plane.request_count())
+                HTTP_NATIVE_SENDFILE.set(plane.sendfile_count())
             if self._stop.is_set():
                 return
 
@@ -1027,6 +1130,7 @@ class VolumeGrpc:
             request.replication, request.ttl,
         )
         self.srv.trigger_heartbeat()
+        self.srv._sync_native_registry()
         return vs.AllocateVolumeResponse()
 
     # ---- status / sync
@@ -1065,11 +1169,13 @@ class VolumeGrpc:
     def VolumeMount(self, request, context):
         self.store.mount_volume(request.volume_id)
         self.srv.trigger_heartbeat()
+        self.srv._sync_native_registry()
         return vs.VolumeMountResponse()
 
     def VolumeUnmount(self, request, context):
         self.store.unmount_volume(request.volume_id)
         self.srv.trigger_heartbeat()
+        self.srv._sync_native_registry()
         return vs.VolumeUnmountResponse()
 
     def VolumeDelete(self, request, context):
@@ -1078,16 +1184,19 @@ class VolumeGrpc:
         except NotFoundError:
             pass
         self.srv.trigger_heartbeat()
+        self.srv._sync_native_registry()
         return vs.VolumeDeleteResponse()
 
     def VolumeMarkReadonly(self, request, context):
         self._volume(request.volume_id, context).read_only = True
         self.srv.trigger_heartbeat()
+        self.srv._sync_native_registry()
         return vs.VolumeMarkReadonlyResponse()
 
     def VolumeMarkWritable(self, request, context):
         self._volume(request.volume_id, context).read_only = False
         self.srv.trigger_heartbeat()
+        self.srv._sync_native_registry()
         return vs.VolumeMarkWritableResponse()
 
     def VolumeConfigure(self, request, context):
@@ -2053,16 +2162,21 @@ class VolumeGrpc:
         v = self.store.find_volume(vid)
         if v is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {vid} not found")
-        # admin handlers read the .dat/.idx files (or their sizes)
-        # directly; group-commit may still hold bytes in the write
-        # buffer (no-op when empty). Under v._lock: an unlocked idx
-        # flush could race a writer mid-append and land an idx entry
-        # on the OS before its dat record bytes.
-        try:
-            with v._lock:
-                v._sync_buffers()
-        except OSError:
-            pass  # surfaced to writers by their own flush
+        if v.native is not None:
+            # gRPC handlers read v.nm directly; absorb any idx entries the
+            # C++ plane appended first (cheap fstat when nothing changed)
+            v.sync_native()
+        else:
+            # admin handlers read the .dat/.idx files (or their sizes)
+            # directly; group-commit may still hold bytes in the write
+            # buffer (no-op when empty). Under v._lock: an unlocked idx
+            # flush could race a writer mid-append and land an idx entry
+            # on the OS before its dat record bytes.
+            try:
+                with v._lock:
+                    v._sync_buffers()
+            except OSError:
+                pass  # surfaced to writers by their own flush
         return v
 
     def _ec_base(self, vid: int, collection: str, context) -> str:
@@ -2169,16 +2283,21 @@ def _make_http_handler(srv: VolumeServer):
                     scrub_stats,
                 )
 
+                plane = srv.native_plane
                 return self._json({
                     # unified /status schema:
                     # version/startedAt/uptimeSeconds at top level on
                     # every server
                     **status_base(srv._started_at),
                     "Version": "seaweedfs-tpu", "Volumes": vols,
-                    # the native C++ data plane is not part of the port
-                    "NativeDataPlane": False,
-                    "NativeRequests": 0,
-                    "NativeSendfile": 0,
+                    # which plane serves the public port: True = the
+                    # C++ data plane, False = the Python listener
+                    "NativeDataPlane": plane is not None,
+                    "NativeRequests":
+                        plane.request_count() if plane else 0,
+                    # zero-copy GETs served via sendfile(2)
+                    "NativeSendfile":
+                        plane.sendfile_count() if plane else 0,
                     # wdclient pool economics + TLS handshake counters
                     # (this process's client legs: replication fan-out)
                     "HttpPool": http_pool_stats(),

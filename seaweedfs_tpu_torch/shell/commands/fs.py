@@ -401,7 +401,10 @@ def fs_verify(env, args, out):
                 urls = []
             for url in urls:
                 try:
-                    if requests.head(url, timeout=10).status_code == 200:
+                    # a volume server's C++ plane answers the HEAD of an
+                    # EC volume's needle with a 307 to its Python listener
+                    if requests.head(url, timeout=10,
+                                     allow_redirects=True).status_code == 200:
                         ok = True
                         break
                 except requests.RequestException:

@@ -567,7 +567,9 @@ def volume_fsck(env, args, out):
                     continue
                 if verbose:
                     urls = env.master_client.lookup_file_id(c.file_id)
-                    r = requests.head(urls[0], timeout=10)
+                    # the C++ plane 307s an EC volume's HEAD to Python
+                    r = requests.head(urls[0], timeout=10,
+                                      allow_redirects=True)
                     if r.status_code != 200:
                         unreadable += 1
                         print(f"  {path}: chunk {c.file_id}: HTTP "

@@ -5,9 +5,10 @@ weed/storage/volume.go, volume_write.go, volume_read.go,
 volume_loading.go, volume_checking.go, volume_vacuum.go,
 needle_map_memory.go): the write, read and delete path, group commit, the
 startup integrity repair, the needle scan and vacuum (compact /
-commit_compact). Moving a `.dat` to a tier backend and back, and the
-native C++ data plane, are not part of the port yet; a volume already
-tiered by the reference still opens read-only.
+commit_compact), and the funnel through which a volume attached to the
+native C++ data plane (native/dataplane.py) hands that plane write
+authority. Moving a `.dat` to a tier backend and back is not part of the
+port yet; a volume already tiered by the reference still opens read-only.
 
 One volume = superblock + appended needle records in
 `.dat`, with a 16-byte-per-entry `.idx` log replayed into an in-memory map
@@ -162,6 +163,9 @@ class NeedleMap:
         # False defers the per-entry flush to the owning Volume's
         # group-commit pass; standalone users keep flush-per-append
         self.auto_flush = True
+        # bytes of the .idx log reflected in the map — lets catchup_from_idx
+        # absorb entries appended by another writer (the native data plane)
+        self._idx_consumed = 0
         if os.path.getsize(idx_path):
             self._load()
 
@@ -172,8 +176,9 @@ class NeedleMap:
         zero-byte needles live, diverging from the reference's replay
         (needle_map_memory.go:40 uses size.IsValid(), size > 0) which
         drops on restart the empty files its own read path serves
-        (volume_read.go:36 returns success for readSize == 0). The
-        reference's C++ data plane uses the same predicate.
+        (volume_read.go:36 returns success for readSize == 0). Both this
+        map and the C++ plane (native/dataplane.cpp Volume::apply) use
+        the same predicate so the two planes never diverge on catchup.
         """
         self.max_file_key = max(self.max_file_key, key)
         self.file_counter += 1
@@ -198,6 +203,30 @@ class NeedleMap:
         ids, offs, sizes = idx_mod.read_index_file(self.idx_path)
         for i in range(len(ids)):
             self._apply(int(ids[i]), int(offs[i]), int(sizes[i]))
+        self._idx_consumed = len(ids) * types.NEEDLE_MAP_ENTRY_SIZE
+
+    def catchup_from_idx(self) -> int:
+        """Absorb idx entries appended past our watermark by another writer
+        (the C++ data plane appends both .dat records and .idx entries;
+        this keeps the Python map/counters authoritative for vacuum,
+        heartbeats and EC). -> number of entries applied."""
+        try:
+            size = os.path.getsize(self.idx_path)
+        except OSError:
+            return 0
+        if size <= self._idx_consumed:
+            return 0
+        with open(self.idx_path, "rb") as f:
+            f.seek(self._idx_consumed)
+            tail = f.read(size - self._idx_consumed)
+        n = len(tail) // types.NEEDLE_MAP_ENTRY_SIZE
+        for i in range(n):
+            key, off, sz = types.unpack_needle_map_entry(
+                tail[i * types.NEEDLE_MAP_ENTRY_SIZE:
+                     (i + 1) * types.NEEDLE_MAP_ENTRY_SIZE])
+            self._apply(key, off, sz)
+        self._idx_consumed += n * types.NEEDLE_MAP_ENTRY_SIZE
+        return n
 
     def put(self, key: int, stored_offset: int, size: int) -> None:
         old = self._m.get(key)
@@ -225,6 +254,7 @@ class NeedleMap:
 
     def _append(self, key: int, off: int, size: int) -> None:
         self._idx_file.write(types.pack_needle_map_entry(key, off, size))
+        self._idx_consumed += types.NEEDLE_MAP_ENTRY_SIZE
         if self.auto_flush:
             self._idx_file.flush()
 
@@ -319,6 +349,13 @@ class Volume:
         # buffer). Invalidated whenever _dat is replaced or truncated.
         self._dat_tail: int | None = None
         self.remote_dat = None  # set when the .dat lives on a tier backend
+        # native (C++) data-plane attachment: when set, the plane is the
+        # single writer authority for this volume's .dat/.idx and all
+        # needle reads/writes funnel through it (native/dataplane.py).
+        # native_writable mirrors the registry's decision (False for
+        # replicated/TTL volumes whose PUTs must stay in Python).
+        self.native = None
+        self.native_writable = False
         base = self.file_name()
         dat_exists = os.path.exists(base + ".dat")
         sidecar = None
@@ -478,6 +515,52 @@ class Volume:
             return
         n.set_replica_epoch_tag(self.epoch_stamper.tag_for(self))
 
+    # -- native data-plane funnel ------------------------------------------
+
+    def attach_native(self, plane) -> None:
+        """Hand write authority for this volume to the C++ data plane."""
+        with self._lock:
+            self._sync_buffers()  # plane appends at the REAL file tail
+            self._dat_tail = None
+            self.sync_native()
+            self.native = plane
+
+    def detach_native(self) -> None:
+        with self._lock:
+            self.native = None
+            self._dat_tail = None  # the plane moved the file tail
+            self.sync_native()
+
+    def sync_native(self) -> None:
+        """Absorb .idx entries appended by the C++ plane so nm-based logic
+        (heartbeats, vacuum, EC preconditions) stays authoritative."""
+        with self._lock:
+            self.nm.catchup_from_idx()
+
+    def _native_write(self, n: Needle,
+                      check_cookie: bool = True) -> tuple[int, int, bool]:
+        """write_needle via the C++ single-writer (same semantics)."""
+        old_blob = self.native.read_blob(self.id, n.id)
+        if old_blob is not None:
+            old = Needle.from_bytes(old_blob, self.version, check_crc=False)
+            if n.cookie == 0 and not check_cookie:
+                n.cookie = old.cookie
+            if old.cookie != n.cookie:
+                raise CookieMismatch(f"mismatching cookie {n.cookie:x}")
+            if (not str(self.ttl) and old.checksum == n.checksum
+                    and old.data == n.data):
+                return 0, len(n.data), True
+        blob = n.to_bytes(self.version)
+        ns_off = types.NEEDLE_HEADER_SIZE + n.size + types.NEEDLE_CHECKSUM_SIZE
+        off, ns = self.native.append_record(
+            self.id, n.id, blob, n.size,
+            ns_off if self.version == types.VERSION3 else -1)
+        n.append_at_ns = ns
+        self.last_append_at_ns = max(self.last_append_at_ns, ns)
+        if self.last_modified_ts_seconds < n.last_modified:
+            self.last_modified_ts_seconds = n.last_modified
+        return off, n.size, False
+
     def write_needle(self, n: Needle, check_cookie: bool = True,
                      stamp: bool = True) -> tuple[int, int, bool]:
         """Append a needle (doWriteRequest, volume_write.go:127-176).
@@ -489,6 +572,9 @@ class Volume:
             if self._gc_frozen:
                 raise IOError(f"volume {self.id} is frozen: a previous "
                               f"group-commit flush failed")
+            if self.native is not None:
+                self._maybe_stamp_epoch(n, stamp)
+                return self._native_write(n, check_cookie)
             unchanged = self._is_file_unchanged(n)
             if unchanged:
                 # the matched record may still be in the group-commit
@@ -715,6 +801,8 @@ class Volume:
             if self._gc_frozen:
                 raise IOError(f"volume {self.id} is frozen: a previous "
                               f"group-commit flush failed")
+            if self.native is not None:
+                return self._native_delete(needle_id, cookie)
             nv = self.nm.get(needle_id)
             if nv is None or nv.offset == 0 or nv.size < 0:
                 return 0
@@ -734,6 +822,22 @@ class Volume:
         self._commit_wait(seq)
         return size
 
+    def _native_delete(self, needle_id: int, cookie: int | None) -> int:
+        old_blob = self.native.read_blob(self.id, needle_id)
+        if old_blob is None:
+            return 0
+        old = Needle.from_bytes(old_blob, self.version, check_crc=False)
+        if cookie is not None and old.cookie != cookie:
+            raise CookieMismatch("cookie mismatch on delete")
+        marker = Needle(id=needle_id, cookie=cookie or 0)
+        blob = marker.to_bytes(self.version)
+        ns_off = types.NEEDLE_HEADER_SIZE + types.NEEDLE_CHECKSUM_SIZE
+        _, ns = self.native.append_record(
+            self.id, needle_id, blob, types.TOMBSTONE_FILE_SIZE,
+            ns_off if self.version == types.VERSION3 else -1)
+        self.last_append_at_ns = max(self.last_append_at_ns, ns)
+        return old.size
+
     # -- read path ---------------------------------------------------------
 
     # -- scrub quarantine --------------------------------------------------
@@ -751,6 +855,18 @@ class Volume:
         cookie + TTL checks."""
         if self.quarantined and needle_id in self.quarantined:
             raise QuarantinedError(self.id, needle_id)
+        if self.native is not None:
+            blob = self.native.read_blob(self.id, needle_id)
+            if blob is None:
+                raise NotFoundError(f"needle {needle_id:x} not found")
+            n = Needle.from_bytes(blob, self.version)
+            if cookie is not None and n.cookie != cookie:
+                raise CookieMismatch(
+                    f"cookie mismatch: read {n.cookie:x} expected {cookie:x}"
+                )
+            if n.has_expired():
+                raise NotFoundError(f"needle {needle_id:x} expired")
+            return n
         nv = self.nm.get(needle_id)
         if nv is None or nv.offset == 0:
             raise NotFoundError(f"needle {needle_id:x} not found")
@@ -886,6 +1002,7 @@ class Volume:
                     f"volume {self.id} is tiered; download before vacuum")
             self.is_compacting = True
             self._sync_buffers()  # the snapshot must cover buffered writes
+            self.nm.catchup_from_idx()  # native plane may have appended
             self._compact_idx_snapshot = os.path.getsize(self.nm.idx_path)
         self._vacuum_verified = None
         try:
@@ -928,6 +1045,11 @@ class Volume:
         snapshot (makeupDiff), atomically swap .cpd/.cpx into place."""
         base = self.file_name()
         with self._lock:
+            # freeze the C++ writer: anything it appended before the freeze
+            # is caught by _makeup_diff's idx-tail replay; nothing may land
+            # in the old .dat after the replay reads the tail
+            if self.native is not None:
+                self.native.set_writable(self.id, False)
             self._sync_buffers()  # the diff replay reads the idx FILE
             self._makeup_diff(base + ".cpd", base + ".cpx")
             self._dat.close()
@@ -947,6 +1069,17 @@ class Volume:
             self.super_block = SuperBlock.from_file(self._dat)
             self.nm = self._new_needle_map(base + ".idx")
             self.is_compacting = False
+            if self.native is not None:
+                if self.native.reload_volume(self.id):
+                    # restore the REGISTRY's writability decision, not
+                    # blanket True: replicated/TTL volumes must keep
+                    # redirecting PUTs
+                    self.native.set_writable(self.id, self.native_writable)
+                else:
+                    # the plane dropped the volume (failed reopen):
+                    # detach so the python engine serves it — stale
+                    # plane state must never answer for it again
+                    self.native = None
             # extent of the freshly-committed, CRC-verified .dat — read
             # under the lock so appends racing the publication below are
             # never claimed as verified
@@ -1006,6 +1139,9 @@ class Volume:
 
     def close(self) -> None:
         with self._lock:
+            if self.native is not None:
+                self.native.remove_volume(self.id)
+                self.native = None
             if self._dat is not None:
                 self._dat.close()
             self.nm.close()

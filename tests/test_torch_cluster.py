@@ -60,6 +60,7 @@ from seaweedfs_tpu_torch import command
 from seaweedfs_tpu_torch.operation import submit
 from seaweedfs_tpu_torch.ops.rs_torch import RSCodecTorch
 from seaweedfs_tpu_torch.pb import rpc
+from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from seaweedfs_tpu_torch.shell.env import CommandEnv
@@ -730,17 +731,62 @@ def test_server_command_runs_master_and_volume_in_one_process(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["master", "-peers", "127.0.0.1:1,127.0.0.1:2"],
-    ["server", "-s3", "-volume.nativeDataPlane", "on", "-coder", "cpu"],
-    ["server", "-volume.nativeDataPlane", "on", "-coder", "cpu"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
 def test_options_not_ported_refuse_at_start(argv, tmp_path):
-    if argv[0] == "server":
-        argv = argv + ["-dir", str(tmp_path), "-master.port",
-                       str(_free_port_pair(PORTS)), "-volume.port",
-                       str(_free_port_pair(PORTS))]
     with pytest.raises(SystemExit) as e:
         command.main(argv)
     assert "ROADMAP.md" in str(e.value.code)
+
+
+@pytest.mark.parametrize("argv", [
+    ["server", "-s3", "-volume.nativeDataPlane", "on", "-coder", "cpu"],
+    ["server", "-volume.nativeDataPlane", "on", "-coder", "cpu"],
+], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
+def test_server_serves_from_the_native_plane_on_request(argv, tmp_path):
+    """`server -volume.nativeDataPlane on`: the volume server's public port
+    is the C++ plane (/status through its 307: NativeDataPlane true), a
+    needle PUT and GET never leave C++, and with -s3 the filer runs its
+    hot plane over it; SIGTERM ends it with exit 0, without jax."""
+    taken = list(PORTS)
+    ports = {}
+    for name in ("master", "volume", "filer", "s3"):
+        ports[name] = _free_port_pair(taken)
+        taken += [ports[name], ports[name] + 1000, ports[name] - 1000]
+    argv = argv + ["-dir", str(tmp_path), "-ip", "127.0.0.1",
+                   "-master.port", str(ports["master"]), "-volume.port",
+                   str(ports["volume"]), "-filer.port", str(ports["filer"]),
+                   "-s3.port", str(ports["s3"])]
+    p = _Procs(tmp_path)
+    try:
+        p.spawn("server", argv)
+        p.wait_for(ports["volume"], "/status", "server")
+        vurl = f"http://127.0.0.1:{ports['volume']}"
+        r = _HTTP.get(f"{vurl}/status", timeout=30, allow_redirects=False)
+        assert r.status_code == 307
+        st = _HTTP.get(f"{vurl}/status", timeout=30).json()
+        assert st["NativeDataPlane"] is True
+        rpc.reset_channels()
+        rpc.volume_stub(f"127.0.0.1:{ports['volume'] + 10000}").AllocateVolume(
+            vs.AllocateVolumeRequest(volume_id=9, replication="000"),
+            timeout=30)
+        fid = "9,0100000005"
+        assert _HTTP.put(f"{vurl}/{fid}", data=BLOBS[0],
+                         allow_redirects=False, timeout=30).status_code == 201
+        g = _HTTP.get(f"{vurl}/{fid}", allow_redirects=False, timeout=30)
+        assert g.status_code == 200 and g.content == BLOBS[0]
+        after = _HTTP.get(f"{vurl}/status", timeout=30).json()
+        assert after["NativeRequests"] > st["NativeRequests"]
+        if "-s3" in argv:
+            p.wait_for(ports["s3"], "/status", "server")  # started last
+            p.wait_for(ports["filer"], "/status", "server")
+            fst = _HTTP.get(f"http://127.0.0.1:{ports['filer']}/status",
+                            timeout=30).json()
+            assert fst["NativeHotPlane"] is not None
+    finally:
+        rcs = p.stop_all()
+        rpc.reset_channels()
+    assert rcs == [0]
+    p.assert_no_jax()
 
 
 def test_server_command_without_a_card_fails_at_start(tmp_path):

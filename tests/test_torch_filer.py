@@ -1091,18 +1091,62 @@ def test_the_status_keys_equal_the_references():
     assert keys["port"] == keys["ref"]
 
 
-def test_the_native_hot_plane_refuses():
-    with pytest.raises(NotImplementedError) as e:
-        filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,
-                                 native_volume_plane=object())
-    assert "ROADMAP.md A2c (native C++ data plane)" in str(e.value)
+@pytest.fixture(scope="module")
+def hot_stack(tmp_path_factory):
+    """A port master, a volume server on the C++ plane and a filer with
+    the hot plane over it (tests/test_torch_native_filer.py)."""
+    from tests.test_torch_native_filer import _stack, _teardown
+
+    stack = _stack("seaweedfs_tpu_torch", tmp_path_factory.mktemp("hs"),
+                   "hs")
+    yield stack
+    _teardown("seaweedfs_tpu_torch", *stack)
+
+
+def test_the_native_hot_plane_serves(hot_stack):
+    """`native_volume_plane=` starts the C++ hot plane on the filer's
+    public port: a whole-object PUT and GET under /buckets/ never leave
+    C++, and /status reports the plane's counters."""
+    _, vsrv, fs = hot_stack
+    assert fs.native_volume_plane is vsrv.native_plane
+    assert fs.hot_plane is not None and fs.admin_port != fs.port
+    before = fs.hot_plane.stats()
+    url = f"http://127.0.0.1:{fs.port}/buckets/hs/a.bin"
+    data = FILES["/data/big/b1.bin"][:100_000]
+    http = requests.Session()
+    http.trust_env = False
+    assert http.put(url, data=data, timeout=60).status_code == 201
+    assert http.get(url, timeout=60).content == data
+    after = fs.hot_plane.stats()
+    assert after["native_puts"] == before["native_puts"] + 1
+    assert after["native_gets"] == before["native_gets"] + 1
+    assert after["redirects"] == before["redirects"]
+    st = http.get(f"http://127.0.0.1:{fs.port}/status", timeout=60).json()
+    assert st["NativeHotPlane"]["native_puts"] == after["native_puts"]
 
 
 @pytest.mark.parametrize("argv", [
     ["benchmark", "-nativeClient"],
+    ["-vmodule", "filer=1", "benchmark", "-filer", "FILER"],
+    ["benchmark", "-filer", "FILER"],
+], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
+def test_the_cli_benchmarks_run_the_compiled_client(argv, hot_stack,
+                                                    capsys):
+    """`benchmark -nativeClient` (volume servers, batched assigns) and
+    `benchmark -filer` (the filer's hot plane) drive the compiled loop
+    and lose no request."""
+    master, _, fs = hot_stack
+    argv = [f"127.0.0.1:{fs.port}" if a == "FILER" else a for a in argv]
+    assert command.main(argv + ["-master", master.address, "-n", "64",
+                                "-size", "1024", "-c", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.count(" 0 failed") == 2, out  # the writes and the reads
+    assert "req/s" in out
+
+
+@pytest.mark.parametrize("argv", [
     ["filer", "-store", "redis"], ["-v", "1", "backup"],
-    ["-vmodule", "filer=1", "benchmark", "-filer", "x"],
-    ["master.follower"], ["benchmark", "-filer", "127.0.0.1:1"],
+    ["master.follower"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
 def test_cli_commands_not_ported_refuse_at_start(argv, tmp_path):
     if argv[0] == "filer":

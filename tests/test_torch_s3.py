@@ -1395,13 +1395,29 @@ def test_benchmark_returns_the_references_keys_with_nothing_failed(tmp_path):
         _reset_clients()
 
 
-@pytest.mark.parametrize("flags", [["-nativeClient"], ["-filer", "x:1"]],
+@pytest.mark.parametrize("flags", [["-nativeClient"], ["-filer", "FILER"]],
                          ids=["nativeClient", "filer"])
-def test_benchmark_native_client_paths_refuse_naming_their_item(flags):
-    with pytest.raises(SystemExit) as e:
-        command.main(["benchmark", "-master", "127.0.0.1:1"] + flags)
-    assert "ROADMAP.md A2c (native C++ data plane)" in str(e.value.code)
-    with pytest.raises(NotImplementedError):
-        benchmark.run_benchmark(_bench_opts(
-            "127.0.0.1:1", nativeClient=flags[0] == "-nativeClient",
-            filer=flags[-1] if flags[0] == "-filer" else ""))
+def test_benchmark_native_client_paths_return_the_references_keys(
+        flags, tmp_path):
+    """`benchmark -nativeClient` and `-filer` over a port stack whose
+    volume server and filer run their C++ planes: the compiled loop loses
+    no request, and the port's result has the reference's keys."""
+    from tests.test_torch_native_filer import _stack, _teardown
+
+    stack = _stack("seaweedfs_tpu_torch", tmp_path, "bench")
+    master, _, fs = stack
+    try:
+        kw = dict(collection="",
+                  nativeClient=flags[0] == "-nativeClient",
+                  filer=f"127.0.0.1:{fs.port}" if flags[0] == "-filer"
+                  else "")
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = benchmark.run_benchmark(_bench_opts(master.address, **kw))
+            want = ref_benchmark.run_benchmark(_bench_opts(master.address,
+                                                           **kw))
+        assert got.keys() == want.keys() == {"write", "read"}
+        for k in got:
+            assert got[k].keys() == want[k].keys()
+            assert got[k]["failed"] == want[k]["failed"] == 0
+    finally:
+        _teardown("seaweedfs_tpu_torch", *stack)

@@ -21,6 +21,7 @@ without JAX; both packages' protobuf files live in one process."""
 
 import hashlib
 import http.client
+import json
 import os
 import random
 import shutil
@@ -29,6 +30,7 @@ import socket
 import subprocess
 import sys
 import time
+from urllib.parse import urlparse
 
 import grpc
 import numpy as np
@@ -142,9 +144,12 @@ def _fid(nid: int, cookie: int) -> str:
 _CONNS: dict = {}
 
 
-def _request(method, path, body=None, headers=None, port=PORT_NO):
+def _request(method, path, body=None, headers=None, port=PORT_NO,
+             follow=True):
     """One request on a keep-alive connection per port (a fresh one for
-    every request would churn the ephemeral ports other tests bind)."""
+    every request would churn the ephemeral ports other tests bind). A
+    307 (the C++ plane handing a request to the Python listener) is
+    followed once, as a client does, on a connection of its own."""
     conn = _CONNS.get(port)
     if conn is None:
         conn = _CONNS[port] = http.client.HTTPConnection("127.0.0.1", port,
@@ -152,10 +157,21 @@ def _request(method, path, body=None, headers=None, port=PORT_NO):
     try:
         conn.request(method, path, body=body, headers=headers or {})
         r = conn.getresponse()
-        return r.status, dict(r.getheaders()), r.read()
+        out = r.status, dict(r.getheaders()), r.read()
     except BaseException:
         _drop_conn(port)
         raise
+    if out[0] != 307 or not follow:
+        return out
+    loc = urlparse(out[1]["Location"])
+    hop = http.client.HTTPConnection("127.0.0.1", loc.port, timeout=60)
+    try:
+        hop.request(method, loc.path + (f"?{loc.query}" if loc.query else ""),
+                    body=body, headers=headers or {})
+        r = hop.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        hop.close()
 
 
 def _drop_conn(port: int) -> None:
@@ -765,20 +781,47 @@ def test_vacuum_refuses_to_copy_a_rotten_record(tmp_path_factory):
     assert _sha(port["rot_left"]) == _sha(ref["rot_left"])
 
 
-@pytest.mark.parametrize("how", ["native", "env", "tier"])
-def test_unported_options_fail_at_construction(tmp_path, monkeypatch, how):
-    kw = {}
-    if how == "native":
-        kw["native"] = True
-    elif how == "env":
-        monkeypatch.setenv("SEAWEEDFS_TPU_NATIVE", "1")
-    else:
-        kw["tier_backends"] = {"local": {"default": {"root": str(tmp_path)}}}
+@pytest.mark.parametrize("how", ["tier"])
+def test_unported_options_fail_at_construction(tmp_path, how):
+    kw = {"tier_backends": {"local": {"default": {"root": str(tmp_path)}}}}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_volume.VolumeServer(
             directories=[str(tmp_path)], master=f"localhost:{NOBODY}",
             port=_free_port_pair(), coder=RSCodecTorch(10, 4, device="cpu"),
             **kw)
+
+
+@pytest.mark.parametrize("how", ["native", "env", "env-off"])
+def test_the_native_plane_serves_at_construction(tmp_path, monkeypatch, how):
+    """`native=True`, or SEAWEEDFS_TPU_NATIVE=1 process-wide, puts the C++
+    plane on the public port (its /status answer: a 307 to the Python
+    listener, which reports NativeDataPlane); SEAWEEDFS_TPU_NATIVE=0
+    keeps the Python plane even when native=True asks for it."""
+    kw = {"native": how != "env"}
+    if how.startswith("env"):
+        monkeypatch.setenv("SEAWEEDFS_TPU_NATIVE",
+                           "0" if how == "env-off" else "1")
+    port = _free_port_pair()
+    srv = port_volume.VolumeServer(
+        directories=[str(tmp_path)], master=f"localhost:{NOBODY}",
+        port=port, coder=RSCodecTorch(10, 4, device="cpu"), **kw)
+    on = how != "env-off"
+    assert srv.native_enabled is on
+    srv.start()
+    try:
+        assert (srv.native_plane is not None) is on
+        status, headers, body = _request("GET", "/status", port=port,
+                                         follow=False)
+        assert status == (307 if on else 200)
+        if on:
+            assert headers["Location"].endswith(f":{srv.admin_port}/status")
+            status, _, body = _request("GET", "/status", port=srv.admin_port)
+        assert json.loads(body)["NativeDataPlane"] is on
+    finally:
+        srv.stop()
+        _drop_conn(port)
+        _drop_conn(srv.admin_port)
+        rpc.reset_channels()
 
 
 # -- the process ----------------------------------------------------------------
