@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch).
 
-    python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 128]
+    python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 64]
                           [--sched-volume-mb 512] [--sched-volumes 8]
                           [--baseline DIR] [--only gf_xor|gf_bits|gf_sel]
 
@@ -142,8 +142,8 @@ and prints no result without them. Phases, each printing its own line:
                      and `ec.rebuild` (sha-identical); a byte flipped in a
                      shard on disk found and repaired by `volume.scrub
                      -full`, a second pass clean; config #4: four volumes
-                     of 128 MiB in collection c4 streamed at once by
-                     `ec.encode -collection c4 -fullPercent 10` while the
+                     of 64 MiB in collection c4 streamed at once by
+                     `ec.encode -collection c4 -fullPercent 4` while the
                      fresh server (its SWFS_FAILPOINTS) drops one incoming
                      stream once a third into a shard: exactly one resume,
                      fewer bytes than its share, shards against the numpy
@@ -163,11 +163,11 @@ and prints no result without them. Phases, each printing its own line:
                      default -maxMB 4, its own -dir, its chunk cache off
                      so that every GET reaches the volume servers).
                      8 clients PUT about 0.8 GB of seeded files through its
-                     HTTP API: 700 of 1-64 KiB (600 in one directory,
+                     HTTP API: 400 of 1-64 KiB (300 in one directory,
                      the rest in 64 nested ones) and 24 of 8-64 MiB (2-16
                      chunks each); every file GET byte-exact with its md5
                      ETag, range GETs across a chunk boundary, the
-                     600-entry directory listed in pages (limit,
+                     300-entry directory listed in pages (limit,
                      lastFileName), one rename (gRPC AtomicRenameEntry),
                      one recursive DELETE. `lock; ec.encode -collection fc
                      -fullPercent 0.001; unlock` (streamed): every volume
@@ -215,11 +215,11 @@ and prints no result without them. Phases, each printing its own line:
                      it lacks) the same WFS operations in this process
                      through the path operations the FUSE callbacks make
                      (mount.PathOps), with its control socket. Before the
-                     encode: through the mount 100 files of 1-64 KiB in 6
+                     encode: through the mount 50 files of 1-64 KiB in 6
                      directories and one of 24 MiB, a rename, a symlink,
                      a hard link and a user xattr, and `mount.configure
                      -quotaMB=1` through `shell -filer` (a write past it
-                     ENOSPC), lifted again; through WebDAV 100 files by 8
+                     ENOSPC), lifted again; through WebDAV 50 files by 8
                      clients and a 24 MiB chunked PUT, PROPFIND of each
                      directory, MKCOL, MOVE, COPY, a LOCK that refuses a
                      PUT without its token, UNLOCK; through FTP 30 files
@@ -228,7 +228,7 @@ and prints no result without them. Phases, each printing its own line:
                      CreateUser, CreateAccessKey, PutUserPolicy,
                      ListUsers, the identity pushed to the S3 gateway: a
                      PUT and a GET with the new key, a PUT with it 403
-                     once deleted; MQ: 4,000 records of 100-1,000 B on
+                     once deleted; MQ: 2,000 records of 100-1,000 B on
                      one topic of 4 partitions, half through the broker's
                      gRPC Publish, half through its HTTP API, a
                      subscription of each partition from offset 0 in
@@ -277,7 +277,24 @@ and prints no result without them. Phases, each printing its own line:
                      those reads; filer.meta.backup's records each of
                      A's events once across its restart, filer.meta.tail
                      every /sync event since it started; every tool
-                     process and filer B exit 0 on SIGTERM without jax
+                     process and filer B exit 0 on SIGTERM without jax.
+                     A network metadata store in the same fleet: a third
+                     filer (-collection fc) started from a directory whose
+                     filer.toml enables [postgres2] at a
+                     FakePostgresServer in this process (SCRAM auth;
+                     tests/fake_postgres.py, loaded by its path), so its
+                     namespace lives in Postgres over the wire protocol
+                     and each S3 bucket in a table of its own. Before the
+                     encode: 400 files of 1-64 KiB by 8 clients, 300 in
+                     one directory and 100 in two buckets under
+                     /buckets/, and one of 24 MiB. After the SIGKILL:
+                     every file GET byte-exact with its md5 ETag, those
+                     with a chunk on a lost shard timed apart, K1 at R = 4
+                     in those reads; the wide directory listed in pages of
+                     100; one bucket deleted (its table dropped in the
+                     fake); the filer SIGTERMed (exit 0) and started again
+                     on the same server, a sample listed and read back;
+                     both processes without jax in sys.modules
  12. hot             the filer hot plane as `server -filer` runs it: one
                      `python3 -m seaweedfs_tpu_torch server -filer`
                      process (master, a volume server on its C++ data
@@ -2190,8 +2207,8 @@ CLUSTER_VOLUME_MB = 192  # needle bytes: the .dat stays under the limit
 CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
 CLUSTER_SMALL_MB = 128  # config #5's collection
 CLUSTER_MULTI = 4  # config #4: volumes streamed at once (-parallelEncode)
-CLUSTER_MULTI_MB = 128  # needle bytes of each
-CLUSTER_MULTI_FULL = 10  # ec.encode -fullPercent that selects them
+CLUSTER_MULTI_MB = 64  # needle bytes of each
+CLUSTER_MULTI_FULL = 4  # ec.encode -fullPercent that selects them
 CLUSTER_RACKS = ("r0", "r0", "r1", "r1")
 CLUSTER_DELETED = 0.10  # the share of needles deleted before the vacuum
 CLUSTER_CALL_S = 1200  # the longest a shell command may take
@@ -3112,8 +3129,8 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
 FILER_LIMIT_MB = 256  # the master's -volumeSizeLimitMB
 FILER_COLLECTION = "fc"
-FILER_SMALL = 700  # files of 1-64 KiB: FILER_WIDE in one directory,
-FILER_WIDE = 600  # the rest in FILER_DIRS nested directories
+FILER_SMALL = 400  # files of 1-64 KiB: FILER_WIDE in one directory,
+FILER_WIDE = 300  # the rest in FILER_DIRS nested directories
 FILER_DIRS = 64
 FILER_LARGE = 24  # files of 8-64 MiB: 2-16 chunks at the default -maxMB 4
 FILER_LARGE_MIB = (8, 64)
@@ -3569,7 +3586,7 @@ def _s3_reads(phase: str, fleet: _Fleet, sport: int, faddr: str, s3w: dict,
 
 # -- the other gateways (webdav, ftp, iam, mq.broker, mount) -------------------
 
-GW_FILES = 100  # files of 1-64 KiB through mount and through WebDAV
+GW_FILES = 50  # files of 1-64 KiB through mount and through WebDAV
 GW_DIRS = 6
 GW_LARGE_MIB = 24  # one file through mount (past its 16 MiB budget), WebDAV
 GW_FTP_FILES = 30
@@ -3578,7 +3595,7 @@ GW_MOUNT_MEMORY_MB = 16
 GW_PASSIVE = 40  # the FTP gateway's passive ports
 GW_IAM_USER = "gw-user"
 MQ_TOPIC = ("gw", "events")
-MQ_RECORDS = 4_000  # of 100-1,000 B, half through gRPC, half through HTTP
+MQ_RECORDS = 2_000  # of 100-1,000 B, half through gRPC, half through HTTP
 MQ_PARTITIONS = 4
 MQ_RING = 4096  # a segment's partition is one range of this ring
 GW_NAMES = ("webdav", "ftp", "iam", "mq", "mount")
@@ -4486,17 +4503,22 @@ FT_TOOLS = ("filer.sync", "filer.replicate", "filer.meta.tail",
             "filer.meta.backup")
 
 
-def _fake_kafka_broker():
-    """tests/fake_kafka.py's FakeKafkaBroker, loaded by its file path (the
-    module imports only the standard library; neither tests/__init__.py
-    nor conftest.py runs)."""
+def _test_module(name: str):
+    """tests/<name>.py loaded by its file path (the fakes import only the
+    standard library; neither tests/__init__.py nor conftest.py runs)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "fake_kafka", os.path.join(HERE, "tests", "fake_kafka.py"))
+        name, os.path.join(HERE, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.FakeKafkaBroker(topic=FT_TOPIC, partitions=FT_PARTITIONS)
+    return mod
+
+
+def _fake_kafka_broker():
+    """tests/fake_kafka.py's FakeKafkaBroker, loaded by its file path."""
+    return _test_module("fake_kafka").FakeKafkaBroker(
+        topic=FT_TOPIC, partitions=FT_PARTITIONS)
 
 
 def _events(address: str, prefix: str, since_ns: int = 0) -> list:
@@ -5030,12 +5052,229 @@ def _tools_reads(phase: str, fleet: _Fleet, tools: _Tools, ftw: dict,
     return dict(split=split, k1=reads_k1)
 
 
+# -- the postgres2 filer (the filer's network metadata stores) -----------------
+
+PG_FILES = 400  # files of 1-64 KiB: PG_WIDE in one directory, the rest in
+PG_WIDE = 300  # the buckets of PG_BUCKETS
+PG_BUCKETS = ("pg-one", "pg-two")  # one table each in the fake
+PG_LARGE_MIB = 24
+PG_SAMPLE = 100  # files listed and read back after its restart
+PG_USER = ("weed", "pg-secret-0001")
+
+
+def _modules_clean(phase: str, path: str, loaded: str) -> None:
+    """The module list a process wrote as it exited holds `loaded` and
+    neither jax nor anything of seaweedfs_tpu."""
+    with open(path) as f:
+        mods = f.read().split("\n")
+    bad = [m for m in mods if m in ("jax", "seaweedfs_tpu")
+           or m.startswith(("jax.", "seaweedfs_tpu."))]
+    if bad or loaded not in mods:
+        raise AssertionError(f"{phase}: modules {bad[:5]}, {loaded} "
+                             f"loaded: {loaded in mods}")
+
+
+class _StoreFiles(_FilerFiles):
+    """The postgres2 filer's set: slices of the filer step's payload."""
+
+    def __init__(self, payload: bytes, rng):
+        self.payload = payload
+        self.items = {}
+        for i in range(PG_FILES):
+            size = int(rng.integers(1, 64 * 1024 + 1))
+            start = int(rng.integers(0, len(payload) - size))
+            if i < PG_WIDE:
+                path = f"/pg/wide/w{i:04d}"
+            else:
+                b = PG_BUCKETS[i % len(PG_BUCKETS)]
+                path = f"/buckets/{b}/d{i % 3}/o{i:04d}"
+            self.items[path] = (start, size)
+        size = PG_LARGE_MIB * MIB
+        self.items["/pg/big/large.bin"] = (
+            int(rng.integers(0, len(payload) - size)), size)
+
+
+class _PgFiler:
+    """A filer on the postgres2 store: the fake server in this process,
+    and the filer's processes, each started from a directory whose
+    filer.toml enables [postgres2] at the fake."""
+
+    def __init__(self, fleet: _Fleet, root: str, fenv: dict):
+        self.fleet = fleet
+        self.root = root
+        self.fenv = fenv
+        self.server = _test_module("fake_postgres").FakePostgresServer(
+            auth="scram", user=PG_USER[0], password=PG_USER[1])
+        self.dir = os.path.join(root, "filer-pg")
+        os.mkdir(self.dir)
+        with open(os.path.join(self.dir, "filer.toml"), "w") as f:
+            f.write(f'[postgres2]\nenabled = true\nhost = "127.0.0.1"\n'
+                    f'port = {self.server.port}\nuser = "{PG_USER[0]}"\n'
+                    f'password = "{PG_USER[1]}"\n'
+                    f'database = "seaweedfs"\n')
+        self.modules = {}
+        self.port = self.spawn("filerPG")
+
+    def spawn(self, name: str) -> int:
+        port = _free_port_pair()
+        while port == self.fleet.master_port or port in self.fleet.ports():
+            port = _free_port_pair()
+        self.modules[name] = os.path.join(self.root, f"{name}.modules")
+        # -dir only for the chunk cache (off): the store is the fake's
+        self.fleet._spawn(name, ["filer", "-ip", "127.0.0.1", "-port",
+                                 str(port), "-master", self.fleet.master,
+                                 "-dir", os.path.join(self.dir, "store"),
+                                 "-collection", FILER_COLLECTION],
+                          port, "", env=self.fenv,
+                          modules=self.modules[name], cwd=self.dir)
+        self.port = port
+        return port
+
+    @property
+    def address(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def tables(self) -> dict[str, int]:
+        """{table: rows} in the fake."""
+        with self.server._dblock:
+            names = [r[0] for r in self.server.db.execute(
+                "SELECT name FROM sqlite_master WHERE type='table'")]
+            return {n: self.server.db.execute(
+                f'SELECT count(*) FROM "{n}"').fetchone()[0] for n in names}
+
+    def stop(self, name: str) -> float:
+        """SIGTERM: exit 0, the postgres client loaded, neither jax nor
+        seaweedfs_tpu in sys.modules; -> seconds to exit."""
+        proc = self.fleet.procs[name][0]
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{self.fleet.phase}: {name} exited {rc}")
+        _modules_clean(self.fleet.phase, self.modules[name],
+                       "seaweedfs_tpu_torch.filer.stores.pg_wire")
+        return dt
+
+    def close(self) -> None:
+        self.server.stop()
+
+
+def _stores_writes(phase: str, pgf: _PgFiler, payload: bytes, rng) -> dict:
+    """The stores step before the encode: every file PUT through the
+    postgres2 filer by 8 clients; -> what the reads after the loss
+    need."""
+    files = _StoreFiles(payload, rng)
+    paths = sorted(files.items, key=lambda p: (files.items[p][1]
+                                               > 64 * 1024, p))
+    md5, write_s = _filer_put_all(phase, pgf.port, files, paths)
+    large = _filer_entries(pgf.address, "/pg/big")
+    tables = pgf.tables()
+    buckets = {b: tables.get(f"bucket_{b}", 0) for b in PG_BUCKETS}
+    want = {b: sum(p.startswith(f"/buckets/{b}/") for p in paths)
+            for b in PG_BUCKETS}
+    # a bucket's table holds its files and their directories
+    if not all(buckets[b] >= want[b] for b in PG_BUCKETS) or \
+            len(large) != 1 or len(large[0].chunks) != 6:
+        raise AssertionError(f"{phase}: postgres2 holds {tables}; the "
+                             f"24 MiB file in "
+                             f"{[len(e.chunks) for e in large]} chunks")
+    total = sum(n for _, n in files.items.values())
+    log(phase, f"postgres2 filer (`filer` from a directory whose filer.toml "
+               f"enables [postgres2] at a FakePostgresServer, SCRAM): "
+               f"{len(paths)} files ({total} B: {PG_FILES} of 1-64 KiB, "
+               f"{PG_WIDE} in /pg/wide, the rest in buckets "
+               f"{'/'.join(PG_BUCKETS)}; one of {PG_LARGE_MIB} MiB in 6 "
+               f"chunks) PUT by {SERVER_CLIENTS} clients in {write_s:.3f} s "
+               f"= {len(paths) / write_s:.0f} files/s; the fake's tables "
+               f"{tables}")
+    return dict(files=files, paths=paths, md5=md5, write_s=write_s)
+
+
+def _stores_reads(phase: str, fleet: _Fleet, pgf: _PgFiler, sw: dict,
+                  touching: set, seed: int) -> dict:
+    """The stores step after the SIGKILL (see the module docstring);
+    -> its numbers for the phase's last line."""
+    files, paths, md5 = sw["files"], sw["paths"], sw["md5"]
+    t_step = time.perf_counter()
+    k0 = fleet.k1()
+    got_ms = _filer_get_all(phase, pgf.port, files, paths, md5)
+    k1 = _k1_step(k0, fleet.k1())
+    deg = [t for p, t in zip(paths, got_ms) if f"PG:{p}" in touching]
+    rest = [t for p, t in zip(paths, got_ms) if f"PG:{p}" not in touching]
+    if not deg or not k1.get(4):
+        raise AssertionError(f"{phase}: the postgres2 filer's GETs: "
+                             f"{len(deg)} on a lost shard, K1 by R {k1}")
+    conn = http.client.HTTPConnection("127.0.0.1", pgf.port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        names, last, pages = [], "", 0
+        while True:
+            st, body = _http(conn, "GET", f"/pg/wide/?limit={FILER_PAGE}"
+                                          f"&lastFileName={last}")
+            page = json.loads(body)
+            pages += 1
+            names += [e["FullPath"] for e in page["Entries"]]
+            if st != 200 or not page["ShouldDisplayLoadMore"]:
+                break
+            last = page["Entries"][-1]["FullPath"].rsplit("/", 1)[1]
+        list_s = time.perf_counter() - t0
+        wide = sorted(p for p in paths if p.startswith("/pg/wide/"))
+        if names != wide:
+            raise AssertionError(f"{phase}: the postgres2 filer lists "
+                                 f"{len(names)} names in /pg/wide")
+        gone_bucket = PG_BUCKETS[1]
+        st, _ = _http(conn, "DELETE", f"/buckets/{gone_bucket}"
+                                      f"?recursive=true")
+        gone = [p for p in paths if p.startswith(f"/buckets/{gone_bucket}/")]
+        st2, _ = _http(conn, "GET", gone[0])
+        tables = pgf.tables()
+        if st != 204 or st2 != 404 or f"bucket_{gone_bucket}" in tables:
+            raise AssertionError(f"{phase}: DELETE of bucket {gone_bucket}: "
+                                 f"{st}, then GET {st2}; tables {tables}")
+    finally:
+        conn.close()
+    paths = [p for p in paths if p not in gone]
+    term_s = pgf.stop("filerPG")
+    t0 = time.perf_counter()
+    pgf.spawn("filerPG2")
+    fleet.wait_up(["filerPG2"])
+    restart_s = time.perf_counter() - t0
+    rpc.reset_channels()
+    sample = sorted(np.random.default_rng(seed + 2).choice(
+        paths, size=PG_SAMPLE, replace=False).tolist())
+    for d in sorted({p.rsplit("/", 1)[0] for p in sample}):
+        got = sorted(f"{d}/{e.name}" for e in _filer_entries(pgf.address, d)
+                     if not e.is_directory)
+        if got != sorted(p for p in paths if p.rsplit("/", 1)[0] == d):
+            raise AssertionError(f"{phase}: after its restart the postgres2 "
+                                 f"filer lists {len(got)} entries in {d}")
+    again = _filer_get_all(phase, pgf.port, files, sample, md5)
+    pgf.stop("filerPG2")
+    log(phase, f"postgres2 filer after the SIGKILL: every file GET "
+               f"byte-exact with its md5 ETag by {SERVER_CLIENTS} readers: "
+               f"{len(deg)} with a chunk on a lost shard ({_ms(deg)}), "
+               f"{len(rest)} others ({_ms(rest)}); K1 launches by R {k1}; "
+               f"/pg/wide listed in {pages} pages of {FILER_PAGE} in "
+               f"{list_s:.3f} s; DELETE /buckets/{gone_bucket} 204 and its "
+               f"table dropped ({len(gone)} files); SIGTERM: exit 0 in "
+               f"{term_s:.2f} s, a new filer on the same server up in "
+               f"{restart_s:.2f} s: a sample of {len(sample)} files listed "
+               f"and read back ({_ms(again)}); neither process had jax or "
+               f"seaweedfs_tpu in sys.modules; the step "
+               f"{time.perf_counter() - t_step:.2f} s after the loss")
+    return dict(deg=deg, rest=rest, k1=k1, list_s=list_s,
+                restart_s=restart_s,
+                files_s=len(sw["paths"]) / sw["write_s"])
+
+
 def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The filer as an operator runs it (see the module docstring):
     files written through its HTTP API, their volumes erasure-coded by
     the shell's streamed `ec.encode` (K1 at R = 4 on each source), every
     file read back through it with a 4-shard server lost (K1 at R = 4 on
-    the survivors), `shell -filer`, a restart on its sqlite store;
+    the survivors), `shell -filer`, a restart on its sqlite store; in its
+    fleet the S3, gateway, filer-tools and postgres2 filer steps;
     -> K1's launches."""
     from seaweedfs_tpu_torch.pb import filer_pb2
     from seaweedfs_tpu_torch.storage.file_id import parse_file_id
@@ -5044,7 +5283,7 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix=f"{phase}-", dir=workdir)
     fleet = _Fleet(phase, root)
-    gw = tools = None
+    gw = tools = pgf = None
     fdir = os.path.join(root, "filer-store")
     # the filer's chunk cache off: every GET below reaches the volume
     # servers, so that the degraded ones are K1's reconstructions
@@ -5065,7 +5304,8 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                      sport, "", modules=s3_modules)
         gw = _Gateways(fleet, root, faddr)
         tools = _Tools(fleet, root, faddr, fenv)
-        up_s = fleet.wait_up(["master", "filer", "s3"] +
+        pgf = _PgFiler(fleet, root, fenv)
+        up_s = fleet.wait_up(["master", "filer", "s3", "filerPG"] +
                              [f"v{i}" for i in range(len(CLUSTER_RACKS))])
         gw.wait_up(["webdav", "ftp", "iam", "mq"]
                    + (["mount"] if gw.kernel else []))
@@ -5075,8 +5315,8 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"{len(CLUSTER_RACKS)} volume servers (default coder, "
                    f"racks {'/'.join(CLUSTER_RACKS)}), a filer (-store "
                    f"sqlite, -maxMB 4, -collection {FILER_COLLECTION}, "
-                   f"chunk cache off), an S3 gateway, WebDAV, FTP, IAM and "
-                   f"MQ gateways and "
+                   f"chunk cache off), a second filer on postgres2, an S3 "
+                   f"gateway, WebDAV, FTP, IAM and MQ gateways and "
                    f"{'a kernel mount' if gw.kernel else 'an in-process mount'}"
                    f" over it started at once: up in {up_s:.2f} s")
 
@@ -5172,6 +5412,9 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         # storage, Kafka
         ftw = _tools_writes(phase, fleet, tools, files, rng, smi)
 
+        # 2e. a filer on a network metadata store: postgres2
+        sw = _stores_writes(phase, pgf, files.payload, rng)
+
         # 3. the shell's streamed ec.encode of every volume holding chunks
         vols = _filer_volumes(fleet)
         _wait_listed(fleet, vols)
@@ -5247,6 +5490,10 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             for e in _filer_entries(tools.baddr, d):
                 chunks_of[f"B:{d}/{e.name}"] = [parse_file_id(c.file_id)
                                                 for c in e.chunks]
+        for d in sorted({p.rsplit("/", 1)[0] for p in sw["paths"]}):
+            for e in _filer_entries(pgf.address, d):  # keyed "PG:<path>"
+                chunks_of[f"PG:{d}/{e.name}"] = [parse_file_id(c.file_id)
+                                                 for c in e.chunks]
         where_of = {}
         for vid, k in keep.items():
             ids, offs, sizes = idx.read_index_file(k + ".idx")
@@ -5275,6 +5522,9 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         if not get_k1.get(4):
             raise AssertionError(f"{phase}: the degraded GETs launched K1 "
                                  f"by R {get_k1}, none at R = 4")
+
+        # 4a. the postgres2 filer's files, listing, bucket delete, restart
+        pgr = _stores_reads(phase, fleet, pgf, sw, touching, seed)
 
         # 4b. every S3 object read back through the gateway; its SIGTERM
         s3r = _s3_reads(phase, fleet, sport, faddr, s3w, touching)
@@ -5365,10 +5615,13 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         by_r = fleet.k1()
         # this master's default replication is 000: the plane wrote the
         # filer's chunks itself, untagged, and GETs of 4,096 B or more of
-        # them ride sendfile
+        # them ride sendfile on every server that held a plain volume of
+        # them (the encode's sources; the master grows volumes on demand,
+        # so a server may hold only shards, which Python serves)
         planes = fleet.planes()
-        if not all(p[2] for p in planes.values()):
-            raise AssertionError(f"{phase}: a volume server served no GET "
+        if not all(planes[a][2] for a in sources):
+            raise AssertionError(f"{phase}: a server that held the filer's "
+                                 f"plain volumes {sources} served no GET "
                                  f"by sendfile: {planes}")
         log(phase, f"every volume server on the C++ plane: (NativeDataPlane,"
                    f" NativeRequests, NativeSendfile) {planes}; 307s this "
@@ -5406,7 +5659,12 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"after the loss: " + "; ".join(
                        f"{n} on a lost shard {_ms(d)}, others {_ms(r)}"
                        for n, (d, r) in ftr["split"].items())
-                   + f", K1 in them {ftr['k1']}; webdav, ftp and iam exit "
+                   + f", K1 in them {ftr['k1']}; the postgres2 filer "
+                   f"{pgr['files_s']:.0f} files/s, GETs after the loss on a "
+                   f"lost shard {_ms(pgr['deg'])}, others "
+                   f"{_ms(pgr['rest'])}, K1 in them {pgr['k1']}, listing "
+                   f"{pgr['list_s']:.3f} s, restart {pgr['restart_s']:.2f} s"
+                   f"; webdav, ftp and iam exit "
                    f"0 on SIGTERM, none with jax or seaweedfs_tpu; gf_xor "
                    f"by R over every server "
                    f"{dict(sorted(by_r.items()))}; phase wall "
@@ -5422,6 +5680,8 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         if tools is not None:
             tools.close()
         fleet.close()
+        if pgf is not None:
+            pgf.close()
         rpc.reset_channels()
         shutil.rmtree(root)
 
@@ -5437,19 +5697,6 @@ HOT_STORM_ACKS = 400  # acknowledged PUTs of the storm before its SIGKILL
 HOT_BENCH = ("-n", "2000", "-size", "4096", "-c", "8")
 BENCH_LINE = re.compile(r"(?:filer )?(write|read): ([\d.]+) req/s.*? "
                         r"(\d+) failed")
-
-
-def _modules_clean(phase: str, path: str) -> None:
-    """The module list a process wrote as it exited holds the port and
-    neither jax nor anything of seaweedfs_tpu."""
-    with open(path) as f:
-        mods = f.read().split("\n")
-    bad = [m for m in mods if m in ("jax", "seaweedfs_tpu")
-           or m.startswith(("jax.", "seaweedfs_tpu."))]
-    if bad or "seaweedfs_tpu_torch.native.dataplane" not in mods:
-        raise AssertionError(f"{phase}: modules {bad[:5]}, the plane's "
-                             f"module loaded: "
-                             f"{'seaweedfs_tpu_torch.native.dataplane' in mods}")
 
 
 def _hot_log_records(path: str) -> int:
@@ -5731,7 +5978,8 @@ def hot_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         rcs = fleet.terminate()
         if set(rcs.values()) != {0}:
             raise AssertionError(f"{phase}: exit codes on SIGTERM {rcs}")
-        _modules_clean(phase, modules)
+        _modules_clean(phase, modules,
+                       "seaweedfs_tpu_torch.native.dataplane")
         if os.path.exists(recovery.marker_path(d)):
             raise AssertionError(f"{phase}: the dirty marker was not lifted")
         log(phase, f"SIGTERM: exit 0, neither jax nor seaweedfs_tpu in "
@@ -5760,8 +6008,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-mb", type=int, default=1024,
                     help="size of the K1 pipeline's volume (default 1024)")
-    ap.add_argument("--bits-volume-mb", type=int, default=128,
-                    help="size of the K2 pipeline's volume (default 128)")
+    ap.add_argument("--bits-volume-mb", type=int, default=64,
+                    help="size of the K2 pipeline's volume (default 64)")
     ap.add_argument("--sched-volume-mb", type=int, default=512,
                     help="size of each concurrent volume of the K3 "
                          "pipeline (default 512)")

@@ -118,9 +118,10 @@ def main(argv=None) -> int:
     fp.add_argument("-dir", default="./filer", help="metadata store directory")
     fp.add_argument("-collection", default="")
     fp.add_argument("-store", default="sqlite",
-                    help="metadata store kind (memory|sqlite|leveldb); the "
-                         "reference's network stores are not part of the "
-                         "port yet and fail at start")
+                    help="metadata store kind (memory|sqlite|leveldb|"
+                         "postgres2|mysql2|redis2|...); a filer.toml "
+                         "section configures a network store, and one whose "
+                         "server does not answer fails at start")
     fp.add_argument("-peers", default="",
                     help="comma-separated peer filers for HA aggregation")
     fp.add_argument("-maxMB", type=int, default=4,
@@ -737,8 +738,9 @@ def _run(opts) -> int:
                              peers=[p.strip() for p in opts.peers.split(",")
                                     if p.strip()])
         except (ValueError, NotImplementedError, RuntimeError) as e:
-            # a store the port does not carry, or a notification queue
-            # that cannot initialize: fail at start, never fall back
+            # an unknown store, one whose server does not answer, or a
+            # notification queue that cannot initialize: fail at start,
+            # never fall back
             raise SystemExit(f"filer: {e}")
         fs.start()
         _wait_forever()

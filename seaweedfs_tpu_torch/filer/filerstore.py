@@ -2,10 +2,12 @@
 
 Counterpart of seaweedfs_tpu/filer/filerstore.py (SeaweedFS
 weed/filer/filerstore.go:21-44): the 9-method KV/list interface every
-metadata backend implements, with stores registered by name. The port
-ships the memory, sqlite and leveldb stores; the reference's network
-stores (`WIRE_STORES`) refuse, naming the ROADMAP.md item that will port
-them.
+metadata backend implements, with stores registered by name: memory,
+sqlite and leveldb on the host, and the network stores that speak their
+servers' wire protocols (mysql, mysql2, postgres, postgres2, redis,
+redis2, redis3, redis_lua, cassandra, mongodb, elastic, elastic7,
+arangodb, hbase, etcd, tikv, ydb). A network store whose server does not
+answer fails; nothing falls back to another store.
 """
 
 from __future__ import annotations
@@ -43,21 +45,6 @@ class FilerStore(Protocol):
 
 _REGISTRY: dict[str, type] = {}
 
-ROADMAP_WIRE_STORES = "ROADMAP.md A2d (filer stores)"
-
-#: the reference's network-backed stores, by registered name; the port
-#: carries none of them (nor their wire helpers bson, thrift_wire and
-#: wire_common), and asking for one fails instead of falling back
-WIRE_STORES = {
-    "mysql": "mysql_wire", "mysql2": "mysql_wire",
-    "postgres": "pg_wire", "postgres2": "pg_wire",
-    "cassandra": "cql_wire", "mongodb": "mongo_wire",
-    "redis": "redis", "redis2": "redis", "redis3": "redis3",
-    "redis_lua": "redis_lua", "etcd": "etcd_store", "tikv": "tikv_store",
-    "ydb": "ydb_store", "hbase": "hbase_store", "arangodb": "arango_wire",
-    "elastic": "elastic_wire", "elastic7": "elastic_wire",
-}
-
 
 def register_store(name: str, cls: type) -> None:
     _REGISTRY[name] = cls
@@ -65,22 +52,105 @@ def register_store(name: str, cls: type) -> None:
 
 def get_store(name: str, **kwargs) -> FilerStore:
     from .stores import (  # noqa: F401 - registration side effect
+        abstract_sql,
+        arango_wire,
+        cql_wire,
+        elastic_wire,
+        etcd_store,
         gated,
         leveldb,
         memory,
+        mongo_wire,
+        redis,
+        redis3,
+        redis_lua,
         sqlite,
+        hbase_store,
+        tikv_store,
+        ydb_store,
     )
 
-    if name in WIRE_STORES:
-        raise ValueError(
-            f"filer store {name!r} (the reference's "
-            f"filer/stores/{WIRE_STORES[name]}.py) is not part of the "
-            f"PyTorch port yet: {ROADMAP_WIRE_STORES}")
     cls = _REGISTRY.get(name)
     if cls is None:
         raise ValueError(f"unknown filer store {name!r} "
                          f"(available: {sorted(_REGISTRY)})")
     return cls(**kwargs)
+
+
+def available_stores() -> list[str]:
+    from .stores import (  # noqa: F401 - registration side effect
+        abstract_sql,
+        arango_wire,
+        cql_wire,
+        elastic_wire,
+        etcd_store,
+        gated,
+        leveldb,
+        memory,
+        mongo_wire,
+        redis,
+        redis3,
+        redis_lua,
+        sqlite,
+        hbase_store,
+        tikv_store,
+        ydb_store,
+    )
+
+    return sorted(_REGISTRY)
+
+
+class StoreWrapper:
+    """Instrumented pass-through (filerstore_wrapper.go): per-op counters
+    and cumulative latency, exported through utils.stats."""
+
+    def __init__(self, store: FilerStore):
+        self.store = store
+        self.name = store.name
+        from ..utils.stats import FILER_STORE_COUNTER, FILER_STORE_SECONDS
+
+        self._counter = FILER_STORE_COUNTER
+        self._seconds = FILER_STORE_SECONDS
+
+    def _timed(self, op: str, fn, *args, **kwargs):
+        import time
+
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self._counter.inc(store=self.name, op=op)
+            self._seconds.inc(time.perf_counter() - t0,
+                              store=self.name, op=op)
+
+    def insert_entry(self, entry):
+        return self._timed("insert", self.store.insert_entry, entry)
+
+    def update_entry(self, entry):
+        return self._timed("update", self.store.update_entry, entry)
+
+    def find_entry(self, full_path):
+        return self._timed("find", self.store.find_entry, full_path)
+
+    def delete_entry(self, full_path):
+        return self._timed("delete", self.store.delete_entry, full_path)
+
+    def delete_folder_children(self, full_path):
+        return self._timed("deleteFolderChildren",
+                           self.store.delete_folder_children, full_path)
+
+    def list_directory_entries(self, *args, **kwargs):
+        return self._timed("list", lambda: list(
+            self.store.list_directory_entries(*args, **kwargs)))
+
+    def kv_get(self, key):
+        return self._timed("kvGet", self.store.kv_get, key)
+
+    def kv_put(self, key, value):
+        return self._timed("kvPut", self.store.kv_put, key, value)
+
+    def close(self):
+        self.store.close()
 
 
 class RetryingStore:
@@ -151,6 +221,68 @@ class RetryingStore:
     def kv_put(self, key, value):
         return self._run("kvPut", lambda: self.store.kv_put(key, value),
                          mutate=True)
+
+    def close(self):
+        self.store.close()
+
+
+class PathTranslatingStore:
+    """Mounts a store under a path prefix
+    (filerstore_translate_path.go): callers see `/x`, the backing store
+    sees `<root>/x`. Used for per-path store routing (fs.configure)."""
+
+    def __init__(self, store: FilerStore, root: str):
+        self.store = store
+        self.root = root.rstrip("/")
+        self.name = f"{store.name}@{root}"
+
+    def _to(self, path: str) -> str:
+        return self.root + path if path != "/" else (self.root or "/")
+
+    def _from(self, path: str) -> str:
+        if self.root and path.startswith(self.root):
+            return path[len(self.root):] or "/"
+        return path
+
+    def insert_entry(self, entry):
+        import copy
+
+        e = copy.copy(entry)
+        e.full_path = self._to(entry.full_path)
+        self.store.insert_entry(e)
+
+    def update_entry(self, entry):
+        import copy
+
+        e = copy.copy(entry)
+        e.full_path = self._to(entry.full_path)
+        self.store.update_entry(e)
+
+    def find_entry(self, full_path):
+        e = self.store.find_entry(self._to(full_path))
+        if e is not None:
+            e.full_path = self._from(e.full_path)
+        return e
+
+    def delete_entry(self, full_path):
+        self.store.delete_entry(self._to(full_path))
+
+    def delete_folder_children(self, full_path):
+        self.store.delete_folder_children(self._to(full_path))
+
+    def list_directory_entries(self, dir_path, start_file_name="",
+                               include_start=False, limit=1024, prefix=""):
+        for e in self.store.list_directory_entries(
+                self._to(dir_path), start_file_name, include_start,
+                limit, prefix):
+            e.full_path = self._from(e.full_path)
+            yield e
+
+    def kv_get(self, key):
+        return self.store.kv_get(key)
+
+    def kv_put(self, key, value):
+        return self.store.kv_put(key, value)
 
     def close(self):
         self.store.close()

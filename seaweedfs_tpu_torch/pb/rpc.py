@@ -10,8 +10,8 @@ code — the wire format is identical).
 
 Counterpart of seaweedfs_tpu/pb/rpc.py with the tables that the volume
 server, the master, the filer and the gateways (S3, mount, IAM, the MQ
-broker) serve or dial. The TiKV, YDB and etcd tables are not part of the
-port yet.
+broker) serve or dial, and the TiKV, YDB and etcd tables that the filer's
+network stores dial.
 
 Convention kept from the reference: a server's gRPC port is its HTTP port
 + 10000 (weed/pb/server_address.go).
@@ -204,6 +204,64 @@ FILER_SERVICE = ("filer_pb.SeaweedFiler", [
     _m("GetMetaRing", meta_ring_pb2.GetMetaRingRequest,
        meta_ring_pb2.MetaRingResponse),
 ])
+
+
+def tikv_pd_service():
+    """pdpb.PD subset (proto/tikv_pd.proto) — real kvproto names, so
+    the stub talks to an actual Placement Driver unchanged."""
+    from . import tikv_pd_pb2 as P
+
+    return ("pdpb.PD", [
+        _m("GetMembers", P.GetMembersRequest, P.GetMembersResponse),
+        _m("GetRegion", P.GetRegionRequest, P.GetRegionResponse),
+        _m("GetStore", P.GetStoreRequest, P.GetStoreResponse),
+    ])
+
+
+def tikv_service():
+    """tikvpb.Tikv RawKV subset (proto/tikv_rpc.proto)."""
+    from . import tikv_kvrpc_pb2 as K
+
+    return ("tikvpb.Tikv", [
+        _m("RawGet", K.RawGetRequest, K.RawGetResponse),
+        _m("RawPut", K.RawPutRequest, K.RawPutResponse),
+        _m("RawDelete", K.RawDeleteRequest, K.RawDeleteResponse),
+        _m("RawScan", K.RawScanRequest, K.RawScanResponse),
+        _m("RawDeleteRange", K.RawDeleteRangeRequest,
+           K.RawDeleteRangeResponse),
+    ])
+
+
+def ydb_table_service():
+    """Ydb.Table.V1.TableService subset (proto/ydb_table_v1.proto) —
+    real package/service names, so method paths and Any type_urls
+    match an actual YDB endpoint."""
+    from . import ydb_table_pb2 as Y
+
+    return ("Ydb.Table.V1.TableService", [
+        _m("CreateSession", Y.CreateSessionRequest,
+           Y.CreateSessionResponse),
+        _m("DeleteSession", Y.DeleteSessionRequest,
+           Y.DeleteSessionResponse),
+        _m("ExecuteDataQuery", Y.ExecuteDataQueryRequest,
+           Y.ExecuteDataQueryResponse),
+        _m("ExecuteSchemeQuery", Y.ExecuteSchemeQueryRequest,
+           Y.ExecuteSchemeQueryResponse),
+    ])
+
+
+def etcd_kv_service():
+    """etcdserverpb.KV subset (proto/etcd_kv.proto) — names match the
+    real etcd v3 API so the stub talks to an actual etcd unchanged.
+    Lazy: the etcd store is the only consumer."""
+    from . import etcd_kv_pb2 as E
+
+    return ("etcdserverpb.KV", [
+        _m("Range", E.RangeRequest, E.RangeResponse),
+        _m("Put", E.PutRequest, E.PutResponse),
+        _m("DeleteRange", E.DeleteRangeRequest, E.DeleteRangeResponse),
+    ])
+
 
 # -- generic stub / servicer -----------------------------------------------
 

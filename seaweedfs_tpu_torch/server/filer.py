@@ -23,9 +23,12 @@ C++ straight off the volume plane, with their entries logged to
 `filer-hot.log` and absorbed into the store; everything else is
 307-redirected to the Python listener on the admin port.
 
-Parts of the reference stay out of the port, and none falls back: a
-filer.toml section that enables a network store (filerstore.WIRE_STORES)
-and the HTML listing (`?ui`) fail, naming their ROADMAP.md items.
+The store is the one filer.toml enables (sqlite, leveldb, or a network
+store such as postgres2, mysql2, redis2/3, cassandra, etcd or tikv; see
+filerstore.available_stores), else `-store`. A network store whose server
+does not answer stops the filer at start; nothing falls back to sqlite.
+The HTML listing (`?ui`) is not part of the port and fails, naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -139,10 +142,10 @@ class FilerServer:
         # filer.toml's enabled section selects + configures the store
         # (command/filer.go LoadConfiguration("filer") — the reference's
         # only store-selection mechanism; the -store flag remains as the
-        # default when no section is enabled). A section naming a store
-        # the port does not carry fails in get_store, never falls back.
-        # A filer.toml that does not parse is ignored with a warning and
-        # the -store default serves, as in the reference.
+        # default when no section is enabled). A store whose server does
+        # not answer fails in get_store and stops the filer, never falls
+        # back. A filer.toml that does not parse is ignored with a warning
+        # and the -store default serves, as in the reference.
         store_kwargs: dict = {}
         try:
             sections = load_config("filer")
@@ -168,7 +171,15 @@ class FilerServer:
                 store, directory=store_kwargs.pop("dir", "")
                 or store_dir or "./filerldb")
         else:
-            backing = get_store(store, **store_kwargs)
+            # a network store dials its server here: one that refuses or
+            # fails its handshake stops the filer with its error
+            try:
+                backing = get_store(store, **store_kwargs)
+            except ValueError:
+                raise
+            except Exception as e:  # noqa: BLE001 - re-raised with context
+                raise RuntimeError(f"filer store {store!r} (filer.toml or "
+                                   f"-store) did not open: {e}") from e
         # transient backend hiccups (and injected chaos) retry with
         # backoff instead of surfacing as 500s from handler threads
         self.filer = Filer(RetryingStore(backing))

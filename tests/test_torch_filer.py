@@ -32,8 +32,10 @@ cluster: files overwritten, read, deleted and read again through the
 filer's chunk cache, with the same answers and cache hits in both.
 
 Then `python -m seaweedfs_tpu_torch filer`, `server -filer` and `shell
--filer` as processes without JAX, and what stays out refusing by its
-ROADMAP.md item. Servers bind ports below the kernel's ephemeral range,
+-filer` as processes without JAX; every network store opened over its
+fake server, a filer on redis2 and a `server -filer` on mysql2 through
+filer.toml, and a store whose address refuses stopping the filer at
+start. Servers bind ports below the kernel's ephemeral range,
 never the reference's defaults (8888, 9333, 8080) or their +10000 and
 +11000 twins."""
 
@@ -79,7 +81,7 @@ from seaweedfs_tpu_torch.filer import entry as port_entry
 from seaweedfs_tpu_torch.filer import filechunks
 from seaweedfs_tpu_torch.filer import filer as filer_core
 from seaweedfs_tpu_torch.filer import meta_log
-from seaweedfs_tpu_torch.filer.filerstore import WIRE_STORES, get_store
+from seaweedfs_tpu_torch.filer.filerstore import get_store
 from seaweedfs_tpu_torch.ops.rs_torch import RSCodecTorch
 from seaweedfs_tpu_torch.pb import filer_pb2
 from seaweedfs_tpu_torch.pb import rpc
@@ -92,6 +94,7 @@ from seaweedfs_tpu_torch.storage import needle, recovery
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry
 from seaweedfs_tpu_torch.utils import trace
 from seaweedfs_tpu_torch.wdclient import pool
+from tests import test_torch_stores as store_fakes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # EC blocks of the test geometry: a volume of a few MiB is all small
@@ -1002,48 +1005,166 @@ def test_server_filer_serves_a_put_and_a_get(tmp_path):
     p.assert_no_jax()
 
 
-# -- what stays out refuses ----------------------------------------------------
+# -- the network stores ----------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", sorted(set(WIRE_STORES.values())))
-def test_wire_stores_refuse_naming_their_item(name):
-    for kind in sorted(k for k, v in WIRE_STORES.items() if v == name):
-        with pytest.raises(ValueError) as e:
-            get_store(kind)
-        assert "ROADMAP.md A2d (filer stores)" in str(e.value)
+@pytest.mark.parametrize("kind", store_fakes.NETWORK_STORES)
+def test_each_network_store_opens_over_its_fake(kind):
+    """get_store opens every registered network store over its fake
+    server, and an entry and a kv pair make the round trip."""
+    srv = store_fakes.open_fake(kind)
+    try:
+        store = get_store(kind, **store_fakes.store_kwargs(kind, srv.port))
+        try:
+            e = port_entry.Entry(full_path=f"/rt/{kind}/a.bin",
+                                 content=b"round trip",
+                                 attr=port_entry.Attr(mtime=7, crtime=7))
+            store.insert_entry(e)
+            got = store.find_entry(e.full_path)
+            assert got.content == b"round trip" and got.attr.mtime == 7
+            assert [x.name for x in store.list_directory_entries(
+                f"/rt/{kind}")] == ["a.bin"]
+            store.kv_put(b"rt-key", b"rt-value")
+            assert store.kv_get(b"rt-key") == b"rt-value"
+            store.delete_entry(e.full_path)
+            assert store.find_entry(e.full_path) is None
+        finally:
+            store.close()
+        assert store_fakes.fake_state(kind, srv)  # it reached the fake
+    finally:
+        srv.stop()
 
 
-def test_a_filer_toml_enabling_a_wire_store_refuses(tmp_path, monkeypatch):
-    (tmp_path / "filer.toml").write_text(
-        "[redis2]\nenabled = true\naddress = \"127.0.0.1:1\"\n")
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(ValueError) as e:
-        filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,
-                                 master="127.0.0.1:1",
-                                 store_dir=str(tmp_path / "f"))
-    assert "ROADMAP.md A2d (filer stores)" in str(e.value)
-    assert not os.path.exists(tmp_path / "f" / "filer.db")  # no fallback
+def _close_filer(fs) -> None:
+    fs.stop()
+    fs._http_server.server_close()
+    fs._grpc_server.stop(None).wait(10)
 
 
-def test_server_filer_on_a_wire_store_refuses_at_start(tmp_path,
+def test_a_filer_toml_on_redis2_serves_a_put_and_a_get(tmp_path,
                                                       monkeypatch):
-    """`server -filer` with a filer.toml that enables a network store:
-    the filer fails before anything binds, and the volume store it
-    opened is closed with its dirty marker lifted."""
-    (tmp_path / "filer.toml").write_text("[mysql]\nenabled = true\n")
+    """filer.toml's [redis2] section puts the filer on a RESP server: a
+    PUT and a GET through it, the entry in the server, no filer.db."""
+    from seaweedfs_tpu_torch.filer.stores.redis import RedisStore
+
+    srv = store_fakes.open_fake("redis2")
+    (tmp_path / "filer.toml").write_text(
+        f'[redis2]\nenabled = true\naddress = "127.0.0.1:{srv.port}"\n')
     monkeypatch.chdir(tmp_path)
-    data = tmp_path / "data"
-    data.mkdir()
+    # ports of its own: the cluster script reuses PORTS after this test
     mport = _free_port_pair(PORTS)
-    with pytest.raises(SystemExit) as e:
-        command.main(["server", "-dir", str(data), "-ip", "127.0.0.1",
-                      "-master.port", str(mport), "-volume.port",
-                      str(PORTS[1]), "-filer", "-filer.port",
-                      str(FILER_PORT), "-coder", "cpu"])
-    assert "ROADMAP.md A2d (filer stores)" in str(e.value.code)
-    assert not os.path.exists(recovery.marker_path(str(data)))
-    with socket.socket() as s:
-        s.bind(("", mport))  # the master never bound its port
+    vport = _free_port_pair(PORTS + [mport])
+    master = MasterServer(ip="127.0.0.1", port=mport,
+                          volume_size_limit_mb=64)
+    master.start(vacuum_interval=3600)
+    vol = VolumeServer(directories=[str(tmp_path / "v")],
+                       master=f"127.0.0.1:{mport}", ip="127.0.0.1",
+                       port=vport, pulse_seconds=1,
+                       coder=RSCodecTorch(10, 4, device="cpu"))
+    vol.start()
+    fs = filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,
+                                  master=f"127.0.0.1:{mport}",
+                                  store_dir=str(tmp_path / "f"))
+    http = requests.Session()
+    http.trust_env = False
+    try:
+        assert isinstance(fs.filer.store.store, RedisStore)
+        fs.start()
+        deadline = time.time() + 30
+        while not master.topo.nodes:
+            assert time.time() < deadline, "the volume never registered"
+            time.sleep(0.05)
+        url = f"http://127.0.0.1:{FILER_PORT}/r2/x.bin"
+        data = FILES["/data/big/b0.bin"][:100_000]
+        assert http.put(url, data=data, timeout=60).status_code == 201
+        assert http.get(url, timeout=60).content == data
+        assert b"/r2/x.bin" in srv.kv
+    finally:
+        http.close()
+        _close_filer(fs)
+        vol.stop()
+        master.stop()
+        srv.stop()
+        rpc.reset_channels()
+    assert not os.path.exists(tmp_path / "f" / "filer.db")
+
+
+def test_server_filer_on_mysql2_serves_a_file(tmp_path):
+    """`server -filer` whose filer.toml enables [mysql2]: a PUT and a GET
+    through the filer, the entry's row in the MySQL server, exit 0 on
+    SIGTERM, no filer.db, and neither jax nor seaweedfs_tpu loaded."""
+    srv = store_fakes.open_fake("mysql2")
+    conf = tmp_path / "home" / ".seaweedfs-tpu"
+    conf.mkdir(parents=True)
+    (conf / "filer.toml").write_text(
+        f'[mysql2]\nenabled = true\nhost = "127.0.0.1"\n'
+        f"port = {srv.port}\n")
+    mport, vport, fport = PORTS[0], PORTS[1], PORTS[5]
+    p = _Procs(tmp_path)
+    p.env["HOME"] = str(tmp_path / "home")  # where its filer.toml is
+    data = FILES["/data/big/b1.bin"]
+    try:
+        p.spawn("server", ["server", "-dir", str(tmp_path), "-ip",
+                           "127.0.0.1", "-master.port", str(mport),
+                           "-volume.port", str(vport), "-filer",
+                           "-filer.port", str(fport), "-coder", "cpu"])
+        p.wait_for(mport, "/cluster/status", "server")
+        p.wait_for(vport, "/status", "server")
+        p.wait_registered(mport, vport)
+        p.wait_for(fport, "/healthz", "server")
+        url = f"http://127.0.0.1:{fport}/my/b1.bin"
+        assert p.http.put(url, data=data, timeout=60).status_code == 201
+        assert p.http.get(url, timeout=60).content == data
+        with srv._dblock:
+            rows = srv.db.execute("SELECT directory, name FROM filemeta "
+                                  "WHERE name = 'b1.bin'").fetchall()
+        assert rows == [("/my", "b1.bin")]
+    finally:
+        rcs = p.stop_all()
+        srv.stop()
+        rpc.reset_channels()
+    assert rcs == [0]
+    assert not os.path.exists(tmp_path / "filer" / "filer.db")
+    p.assert_no_jax()
+
+
+@pytest.mark.parametrize("entry", ["FilerServer", "filer", "server -filer"])
+def test_a_store_whose_address_refuses_stops_the_filer(entry, tmp_path,
+                                                       monkeypatch):
+    """A network store whose server does not answer stops the filer at
+    start, through each entry point: no fallback, no filer.db written;
+    `server -filer` closes the volume store it opened (its dirty marker
+    lifted) before the master binds."""
+    (tmp_path / "filer.toml").write_text(
+        '[postgres2]\nenabled = true\nhost = "127.0.0.1"\nport = 1\n')
+    monkeypatch.chdir(tmp_path)
+    store_dir = tmp_path / "filer"
+    if entry == "FilerServer":
+        with pytest.raises(RuntimeError, match="postgres2.*did not open"):
+            filer_server.FilerServer(ip="127.0.0.1", port=FILER_PORT,
+                                     master="127.0.0.1:1",
+                                     store_dir=str(store_dir))
+    elif entry == "filer":
+        with pytest.raises(SystemExit) as e:
+            command.main(["filer", "-ip", "127.0.0.1", "-port",
+                          str(FILER_PORT), "-master", "127.0.0.1:1",
+                          "-dir", str(store_dir)])
+        assert "postgres2" in str(e.value.code)
+    else:
+        data = tmp_path / "data"
+        data.mkdir()
+        mport = _free_port_pair(PORTS)
+        with pytest.raises(SystemExit) as e:
+            command.main(["server", "-dir", str(data), "-ip", "127.0.0.1",
+                          "-master.port", str(mport), "-volume.port",
+                          str(PORTS[1]), "-filer", "-filer.port",
+                          str(FILER_PORT), "-coder", "cpu"])
+        assert "postgres2" in str(e.value.code)
+        assert not os.path.exists(recovery.marker_path(str(data)))
+        with socket.socket() as s:
+            s.bind(("", mport))  # the master never bound its port
+        store_dir = data / "filer"
+    assert not os.path.exists(store_dir / "filer.db")  # no fallback
 
 
 @pytest.mark.parametrize("name,text", [("filer", "[sqlite\n"),
@@ -1145,12 +1266,9 @@ def test_the_cli_benchmarks_run_the_compiled_client(argv, hot_stack,
 
 
 @pytest.mark.parametrize("argv", [
-    ["filer", "-store", "redis"], ["-v", "1", "backup"],
-    ["master.follower"],
+    ["-v", "1", "backup"], ["master.follower"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
 def test_cli_commands_not_ported_refuse_at_start(argv, tmp_path):
-    if argv[0] == "filer":
-        argv = argv + ["-dir", str(tmp_path), "-port", str(FILER_PORT)]
     with pytest.raises(SystemExit) as e:
         command.main(argv)
     assert "ROADMAP.md" in str(e.value.code)
