@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch).
 
     python3 chip_smoke.py [--volume-mb 1024] [--bits-volume-mb 64]
-                          [--sched-volume-mb 512] [--sched-volumes 8]
+                          [--sched-volume-mb 256] [--sched-volumes 8]
                           [--baseline DIR] [--only gf_xor|gf_bits|gf_sel]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and nvidia-smi; exits non-zero
@@ -80,7 +80,7 @@ and prints no result without them. Phases, each printing its own line:
                      fresh directory with its default coder (new_coder():
                      cuda, K1, the dispatch scheduler) takes seeded needles
                      of 1-64 KiB through Store.write_needle until the .dat
-                     reaches 1 GiB; then the ec.encode handlers' sequence
+                     reaches 512 MiB; then the ec.encode handlers' sequence
                      (mark read-only, write_ec_files through
                      Store.coder_for, write_sorted_file_from_idx,
                      save_volume_info, mount_ec_shards, delete_volume),
@@ -96,7 +96,7 @@ and prints no result without them. Phases, each printing its own line:
   9. server          the volume server as a process: `python3 -m
                      seaweedfs_tpu_torch volume` with its default coder
                      (cuda, K1) and an unreachable master; over gRPC
-                     AllocateVolume, 512 MiB of seeded 1-64 KiB needles
+                     AllocateVolume, 256 MiB of seeded 1-64 KiB needles
                      POSTed over HTTP by 8 clients, an eighth of them
                      GET from the plain volume, VolumeMarkReadonly,
                      VolumeEcShardsGenerate, VolumeUnmount and
@@ -113,18 +113,30 @@ and prints no result without them. Phases, each printing its own line:
                      launches by R) show each step's EC work ran K1 on the
                      card
  10. cluster         the operator's path through a cluster of processes:
-                     `python3 -m seaweedfs_tpu_torch master`
-                     (-volumeSizeLimitMB 1024, -defaultReplication 001) and
-                     four `volume` servers with their default coder (cuda,
-                     K1) in racks r0, r0, r1, r1, all started at once.
+                     three `python3 -m seaweedfs_tpu_torch master -peers
+                     ... -mdir ...` (one Raft group; -volumeSizeLimitMB
+                     1024, -defaultReplication 001) and four `volume`
+                     servers with their default coder (cuda, K1) in racks
+                     r0, r0, r1, r1, given all three masters, all started
+                     at once.
                      `shell` volume.grow of one volume of collection c1
                      with replication 001; 8 clients write seeded 1-64 KiB
-                     needles through operation.submit until it holds 192
+                     needles through operation.submit until it holds 128
                      MiB of needle bytes (both replicas hold every one); a
                      seeded 10% deleted through the primary, then
                      `volume.vacuum -garbageThreshold 0.05` (both replicas
                      compact and commit; every needle read back from each,
-                     byte-exact or 404); `lock; ec.encode; unlock`, the
+                     byte-exact or 404); on the live volume `backup` in
+                     full, a JSON, a gzipped CSV and a PNG needle written
+                     into it, the PNG GET with ?width= through the C++
+                     plane's 307 to Python (resized as images.resized
+                     does, or the stored bytes where the host has no
+                     PIL), the master's and the server's /ui naming the
+                     fleet's servers and the volume, `backup` again
+                     (incremental: the needles the server holds), then
+                     `compact` and `export` of the backup (every live
+                     needle a file), each a process of the port;
+                     `lock; ec.encode; unlock`, the
                      default streamed path (placement first, then K1 at
                      R = 4 on the source while it streams each
                      destination's shards to it, rack-aware 4/4/3/3, both
@@ -134,22 +146,35 @@ and prints no result without them. Phases, each printing its own line:
                      destination's .dig manifest against its files; the
                      source's stream counters; every server's CRC-32C
                      compiled; volume.list shows the EC volume on all
-                     four servers); SIGKILL of a
+                     four servers); SIGKILL of the Raft leader: the
+                     seconds until `cluster.raft.ps` names a new leader
+                     and an assign succeeds, whose new volume's id is
+                     above every id before the loss (MaxVolumeId is
+                     replicated), everything below through the new
+                     leader; SIGKILL of a
                      server holding 4 shards and 8 readers GET every
                      surviving needle through MasterClient lookups
                      (degraded reads gather survivors from the other
-                     servers over VolumeEcShardRead); a fresh empty server
+                     servers over VolumeEcShardRead); the Query RPC over
+                     the JSON and the gzipped CSV needle on a surviving
+                     shard holder equal to what json and csv give for the
+                     same filter; a fresh empty server
                      and `ec.rebuild` (sha-identical); a byte flipped in a
                      shard on disk found and repaired by `volume.scrub
-                     -full`, a second pass clean; config #4: four volumes
-                     of 64 MiB in collection c4 streamed at once by
-                     `ec.encode -collection c4 -fullPercent 4` while the
+                     -full`, a second pass clean; the killed master
+                     started again on its -mdir rejoins as a follower,
+                     `cluster.raft.remove` and `cluster.raft.add` of it;
+                     config #4: four volumes
+                     of 32 MiB in collection c4 streamed at once by
+                     `ec.encode -collection c4 -fullPercent 2` while the
                      fresh server (its SWFS_FAILPOINTS) drops one incoming
                      stream once a third into a shard: exactly one resume,
                      fewer bytes than its share, shards against the numpy
                      cpu coder, every needle GET through lookups;
                      `ec.decode` and every needle GET again; a second
-                     collection of 128 MiB encoded by the copy path
+                     collection of 128 MiB (`fix` of a copy of it without
+                     its .idx gives the .idx back byte for byte) encoded
+                     by the copy path
                      (`-stream 0`) with `-dataShards 6 -parityShards 3`
                      (BASELINE config #5), a server lost, every needle GET
                      byte-exact; SIGTERM to every process: exit 0, no
@@ -162,21 +187,36 @@ and prints no result without them. Phases, each printing its own line:
                      r0, r0, r1, r1 and a `filer` (-store sqlite, the
                      default -maxMB 4, its own -dir, its chunk cache off
                      so that every GET reaches the volume servers).
-                     8 clients PUT about 0.8 GB of seeded files through its
-                     HTTP API: 400 of 1-64 KiB (300 in one directory,
-                     the rest in 64 nested ones) and 24 of 8-64 MiB (2-16
+                     8 clients PUT about 0.6 GB of seeded files through its
+                     HTTP API: 250 of 1-64 KiB (150 in one directory,
+                     the rest in 64 nested ones) and 16 of 8-64 MiB (2-16
                      chunks each); every file GET byte-exact with its md5
                      ETag, range GETs across a chunk boundary, the
-                     300-entry directory listed in pages (limit,
+                     150-entry directory listed in pages (limit,
                      lastFileName), one rename (gRPC AtomicRenameEntry),
-                     one recursive DELETE. `lock; ec.encode -collection fc
+                     one recursive DELETE, the directory's HTML page
+                     (`?ui`) naming every file. Tiering: a fifth volume
+                     server (-max 2) whose -tierConfig names an `s3`
+                     backend at the fleet's S3 gateway (bucket tier,
+                     signed with the S3 step's identity) takes 32 MiB of
+                     seeded 1-64 KiB needles into volume 900 of
+                     collection tier; `volume.tier.upload` moves its
+                     .dat (sha256 taken first) into the bucket through
+                     the gateway and the filer, the C++ plane lets go of
+                     the volume, every needle reads back byte-exact from
+                     the remote .dat. `lock; ec.encode -collection fc
                      -fullPercent 0.001; unlock` (streamed): every volume
                      holding chunks, 14 shard sha256s each against the
                      numpy cpu coder, K1 at R = 4 on every source. SIGKILL
                      of a server holding 4 shards; every surviving file
                      GET byte-exact by 8 readers, those with a chunk on a
                      lost shard timed apart, K1 at R = 4 on the
-                     survivors; `shell -filer` fs.ls, fs.du, fs.cat and
+                     survivors; every tiered needle read again through
+                     the erasure-coded bucket (K1 at R = 4 in those
+                     reads), `volume.tier.download`, the .dat back with
+                     its sha256, every needle read once more (that server
+                     is never the one killed); `shell -filer` fs.ls,
+                     fs.du, fs.cat and
                      fs.verify against the written set. The filer SIGTERMed
                      (exit 0) and started again on its -dir: a seeded
                      sample listed and read back. SIGTERM to every
@@ -190,7 +230,7 @@ and prints no result without them. Phases, each printing its own line:
                      s3.bucket.create, the identity pushed to the gateway
                      through SeaweedS3.Configure; an unsigned PUT refused
                      403. Every request below SigV4-signed (the port's
-                     sigv4_client): 8 clients PUT 250 seeded objects of
+                     sigv4_client): 8 clients PUT 120 seeded objects of
                      1-64 KiB over 16 prefixes and 4 of 24-48 MiB in 8 MiB
                      multipart parts (about 0.2 GiB, into the filer's
                      collection, so the encode above covers them); a
@@ -215,11 +255,11 @@ and prints no result without them. Phases, each printing its own line:
                      it lacks) the same WFS operations in this process
                      through the path operations the FUSE callbacks make
                      (mount.PathOps), with its control socket. Before the
-                     encode: through the mount 50 files of 1-64 KiB in 6
+                     encode: through the mount 25 files of 1-64 KiB in 6
                      directories and one of 24 MiB, a rename, a symlink,
                      a hard link and a user xattr, and `mount.configure
                      -quotaMB=1` through `shell -filer` (a write past it
-                     ENOSPC), lifted again; through WebDAV 50 files by 8
+                     ENOSPC), lifted again; through WebDAV 25 files by 8
                      clients and a 24 MiB chunked PUT, PROPFIND of each
                      directory, MKCOL, MOVE, COPY, a LOCK that refuses a
                      PUT without its token, UNLOCK; through FTP 30 files
@@ -228,7 +268,7 @@ and prints no result without them. Phases, each printing its own line:
                      CreateUser, CreateAccessKey, PutUserPolicy,
                      ListUsers, the identity pushed to the S3 gateway: a
                      PUT and a GET with the new key, a PUT with it 403
-                     once deleted; MQ: 2,000 records of 100-1,000 B on
+                     once deleted; MQ: 1,000 records of 100-1,000 B on
                      one topic of 4 partitions, half through the broker's
                      gRPC Publish, half through its HTTP API, a
                      subscription of each partition from offset 0 in
@@ -285,8 +325,8 @@ and prints no result without them. Phases, each printing its own line:
                      tests/fake_postgres.py, loaded by its path), so its
                      namespace lives in Postgres over the wire protocol
                      and each S3 bucket in a table of its own. Before the
-                     encode: 400 files of 1-64 KiB by 8 clients, 300 in
-                     one directory and 100 in two buckets under
+                     encode: 200 files of 1-64 KiB by 8 clients, 150 in
+                     one directory and 50 in two buckets under
                      /buckets/, and one of 24 MiB. After the SIGKILL:
                      every file GET byte-exact with its md5 ETag, those
                      with a chunk on a lost shard timed apart, K1 at R = 4
@@ -1527,7 +1567,7 @@ def mesh_phase(seed: int, workdir: str, card: str,
 
 
 STORE_VID = 7
-STORE_VOLUME_MB = 1024  # pipeline's size and needle mix, through the Store
+STORE_VOLUME_MB = 512  # pipeline's needle mix, through the Store
 STORE_SAMPLE_READS = 500
 
 
@@ -1715,10 +1755,10 @@ def store_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
 
 SERVER_VID = 9
-# the store phase's needle mix over HTTP, at half its size: at full size
-# the script came within 31 s of its 1200 s limit on a slow host, and the
-# filer phase's time came out of this phase's and the cluster's depth
-SERVER_VOLUME_MB = 512
+# the store phase's needle mix over HTTP, at a quarter of the pipeline's
+# size: at 1 GiB the script came within 31 s of its 1200 s limit on a slow
+# host, and the later phases' time came out of this phase's depth
+SERVER_VOLUME_MB = 256
 SERVER_CLIENTS = 8  # writer threads, then reader threads
 SERVER_START_S = 120  # process start until /status answers
 SERVER_EC_TIMEOUT_S = 600  # the first EC RPC may build K1 (60-104 s of nvcc)
@@ -1807,12 +1847,12 @@ def _plane(port: int) -> tuple[bool, int, int]:
     return st["NativeDataPlane"], st["NativeRequests"], st["NativeSendfile"]
 
 
-def _fid(nid: int, cookie: int) -> str:
-    return f"{SERVER_VID},{format_needle_id_cookie(nid, cookie)}"
+def _fid(nid: int, cookie: int, vid: int = SERVER_VID) -> str:
+    return f"{vid},{format_needle_id_cookie(nid, cookie)}"
 
 
-def _clients(port: int, work, items) -> list:
-    """work(conn, item) for every item, SERVER_CLIENTS threads with one
+def _clients(port: int, work, items, clients: int = SERVER_CLIENTS) -> list:
+    """work(conn, item) for every item, `clients` threads with one
     keep-alive connection each, items dealt round-robin; -> the results
     in order. The first error raises."""
     out = [None] * len(items)
@@ -1820,29 +1860,32 @@ def _clients(port: int, work, items) -> list:
     def run(t):
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         try:
-            for i in range(t, len(items), SERVER_CLIENTS):
+            for i in range(t, len(items), clients):
                 out[i] = work(conn, items[i])
         finally:
             conn.close()
 
-    _all_at_once(run, list(range(SERVER_CLIENTS)))
+    _all_at_once(run, list(range(clients)))
     return out
 
 
-def _get_all(phase: str, port: int, needles, payload) -> list[float]:
-    """GET every (id, cookie, start, size) needle, byte-exact against the
-    bytes written; -> the seconds each GET took."""
+def _get_all(phase: str, port: int, needles, payload,
+             vid: int = SERVER_VID, clients: int = SERVER_CLIENTS
+             ) -> list[float]:
+    """GET every (id, cookie, start, size) needle of volume `vid`,
+    byte-exact against the bytes written; -> the seconds each GET
+    took."""
     def get(conn, needle):
         nid, cookie, start, size = needle
         t0 = time.perf_counter()
-        status, body = _http(conn, "GET", "/" + _fid(nid, cookie))
+        status, body = _http(conn, "GET", "/" + _fid(nid, cookie, vid))
         dt = time.perf_counter() - t0
         if status != 200 or body != payload[start:start + size]:
             raise AssertionError(f"{phase}: GET of needle {nid}: {status}, "
                                  f"{len(body)} B, not the bytes written")
         return dt
 
-    return _clients(port, get, needles)
+    return _clients(port, get, needles, clients)
 
 
 def _ms(xs: list[float]) -> str:
@@ -1861,6 +1904,19 @@ def _status(port: int) -> dict:
         conn.close()
     if status != 200:
         raise AssertionError(f"server: /status answered {status}")
+    return json.loads(body)
+
+
+def _json_get(port: int, path: str) -> dict:
+    """GET `path` of a server's HTTP port (one 307 followed) -> its
+    JSON."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        status, body = _http(conn, "GET", path)
+    finally:
+        conn.close()
+    if status != 200:
+        raise ValueError(f"GET {path} on :{port} answered {status}")
     return json.loads(body)
 
 
@@ -2203,12 +2259,12 @@ def server_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 # -- cluster --------------------------------------------------------------------
 
 
-CLUSTER_VOLUME_MB = 192  # needle bytes: the .dat stays under the limit
+CLUSTER_VOLUME_MB = 128  # needle bytes: the .dat stays under the limit
 CLUSTER_LIMIT_MB = 1024  # the master's -volumeSizeLimitMB
 CLUSTER_SMALL_MB = 128  # config #5's collection
 CLUSTER_MULTI = 4  # config #4: volumes streamed at once (-parallelEncode)
-CLUSTER_MULTI_MB = 64  # needle bytes of each
-CLUSTER_MULTI_FULL = 4  # ec.encode -fullPercent that selects them
+CLUSTER_MULTI_MB = 32  # needle bytes of each
+CLUSTER_MULTI_FULL = 2  # ec.encode -fullPercent that selects them
 CLUSTER_RACKS = ("r0", "r0", "r1", "r1")
 CLUSTER_DELETED = 0.10  # the share of needles deleted before the vacuum
 CLUSTER_CALL_S = 1200  # the longest a shell command may take
@@ -2233,6 +2289,10 @@ class _Fleet:
         self.rack_of: dict[str, str] = {}  # volume server address -> rack
         self.master_port = _free_port_pair()
         self.master = f"127.0.0.1:{self.master_port}"
+        # a Raft group's masters (spawn_raft_masters): their ports and
+        # the arguments each was started with
+        self.master_ports: list[int] = []
+        self.master_args: dict[str, list[str]] = {}
         self.k1_gone: dict[int, int] = {}  # K1 by R of killed servers
         # _plane of killed servers, read just before they were killed
         self.planes_gone: dict[str, tuple] = {}
@@ -2261,10 +2321,58 @@ class _Fleet:
                                str(CLUSTER_LIMIT_MB), "-defaultReplication",
                                "001"], self.master_port, "")
 
+    def spawn_raft_masters(self, n: int) -> None:
+        """`n` masters of one Raft group (-peers, each on its own -mdir),
+        named master, master1, ...; volume servers and shells are given
+        every one of them, the leader first once `lead` knows it."""
+        ports = [self.master_port]
+        while len(ports) < n:
+            p = _free_port_pair()
+            if p not in ports + self.ports():
+                ports.append(p)
+        self.master_ports = ports
+        self.master = ",".join(f"127.0.0.1:{p}" for p in ports)
+        for i, port in enumerate(ports):
+            name = f"master{i}" if i else "master"
+            mdir = os.path.join(self.root, f"{name}-mdir")
+            self.master_args[name] = [
+                "master", "-ip", "127.0.0.1", "-port", str(port),
+                "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB),
+                "-defaultReplication", "001", "-peers", self.master,
+                "-mdir", mdir]
+            self._spawn(name, self.master_args[name], port, mdir)
+
+    def leader(self) -> str:
+        """The address of the master that leads (the only one without a
+        Raft group)."""
+        return f"127.0.0.1:{self.master_port}"
+
+    def lead(self, timeout: float = 120) -> str:
+        """Wait until one running master of the Raft group leads; put it
+        first in `master` and make it `master_port`; -> its address."""
+        t0 = time.perf_counter()
+        while True:
+            for name, (proc, _, port, _) in self.procs.items():
+                if not name.startswith("master") or proc.poll() is not None:
+                    continue
+                try:
+                    st = _json_get(port, "/cluster/raft/status")
+                except (OSError, ValueError):
+                    continue
+                if st.get("role") == "leader":
+                    self.master_port = port
+                    self.master = ",".join(
+                        f"127.0.0.1:{p}" for p in
+                        [port] + [p for p in self.master_ports if p != port])
+                    return f"127.0.0.1:{port}"
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"{self.phase}: no master leads")
+            time.sleep(0.1)
+
     def spawn_volume(self, name: str, rack: str,
-                     env: dict | None = None) -> None:
+                     env: dict | None = None, args=()) -> None:
         """A volume server; `env` adds to the fleet's environment for
-        this process alone."""
+        this process alone, `args` to its command line."""
         port = _free_port_pair()
         while port == self.master_port or port in self.ports():
             port = _free_port_pair()
@@ -2273,7 +2381,7 @@ class _Fleet:
         self.rack_of[f"127.0.0.1:{port}"] = rack
         self._spawn(name, ["volume", "-dir", d, "-ip", "127.0.0.1",
                            "-port", str(port), "-mserver", self.master,
-                           "-rack", rack], port, d, env)
+                           "-rack", rack, *args], port, d, env)
 
     def ports(self) -> list[int]:
         return [p for _, _, p, _ in self.procs.values()]
@@ -2333,6 +2441,8 @@ class _Fleet:
                     if time.perf_counter() - t0 > timeout:
                         raise
                     time.sleep(0.2)
+        if self.master_ports:
+            self.lead(timeout)
         self.wait_nodes(set(self.volumes()), timeout)
         return time.perf_counter() - t0
 
@@ -2601,7 +2711,7 @@ def _wait_ec(fleet: _Fleet, vid: int, shards: int, plain: bool) -> None:
     and (`plain`) or not its plain replicas."""
     from seaweedfs_tpu_torch.pb import master_pb2
 
-    stub = rpc.master_stub(rpc.grpc_address(fleet.master))
+    stub = rpc.master_stub(rpc.grpc_address(fleet.leader()))
     t0 = time.perf_counter()
     while True:
         topo = stub.VolumeList(master_pb2.VolumeListRequest(),
@@ -2629,7 +2739,7 @@ def _wait_sizes(fleet: _Fleet, collection: str, want: int,
     -> {vid: size}."""
     from seaweedfs_tpu_torch.pb import master_pb2
 
-    stub = rpc.master_stub(rpc.grpc_address(fleet.master))
+    stub = rpc.master_stub(rpc.grpc_address(fleet.leader()))
     t0 = time.perf_counter()
     while True:
         topo = stub.VolumeList(master_pb2.VolumeListRequest(),
@@ -2751,10 +2861,386 @@ def _multi_stream(phase: str, fleet: _Fleet, rng, payload: bytes,
     return dict(gbps=gbps)
 
 
+RAFT_MASTERS = 3  # the cluster phase's masters: one Raft group
+RAFT_WAIT_S = 120  # the longest a new leader, or a rejoin, may take
+QUERY_ROWS = 400  # records of each Query needle
+QUERY_NEEDLE = 1 << 40  # the ids of the Query and resize needles
+RESIZE_WIDTH = 32
+
+
+def _max_volume_id(fleet: _Fleet) -> int:
+    """The highest volume id the leader's topology holds, plain or EC."""
+    from seaweedfs_tpu_torch.pb import master_pb2
+
+    topo = rpc.master_stub(rpc.grpc_address(fleet.leader())).VolumeList(
+        master_pb2.VolumeListRequest(), timeout=60).topology_info
+    ids = [0]
+    for dc in topo.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                for disk in dn.disk_infos.values():
+                    ids += [v.id for v in disk.volume_infos]
+                    ids += [e.id for e in disk.ec_shard_infos]
+    return max(ids)
+
+
+def _raft_failover(phase: str, fleet: _Fleet) -> dict:
+    """SIGKILL of the Raft group's leader; -> seconds until
+    `cluster.raft.ps` names a new leader and until an assign succeeds,
+    and the new volume's id, which must be above every id assigned
+    before the loss."""
+    import io
+
+    import grpc
+
+    from seaweedfs_tpu_torch.operation import assign
+    from seaweedfs_tpu_torch.shell.env import CommandEnv
+    from seaweedfs_tpu_torch.shell.registry import run_command
+
+    old = fleet.lead()
+    before = _max_volume_id(fleet)
+    port = fleet.port_of(old)
+    name = next(n for n, (_, _, p, _) in fleet.procs.items()
+                if p == port and n.startswith("master"))
+    proc = fleet.procs[name][0]
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    t0 = time.perf_counter()
+    env = CommandEnv(",".join(f"127.0.0.1:{p}" for p in fleet.master_ports
+                              if p != port))
+    while True:
+        out = io.StringIO()
+        try:
+            rc = run_command(env, "cluster.raft.ps", out)
+        except grpc.RpcError:
+            rc = 1
+        m = re.search(r"(\S+) Voter \*leader\*", out.getvalue())
+        if rc == 0 and m and m.group(1) != old:
+            break
+        if time.perf_counter() - t0 > RAFT_WAIT_S:
+            raise AssertionError(f"{phase}: no new leader after the loss of "
+                                 f"{old}: {out.getvalue()}")
+        time.sleep(0.1)
+    ps_s = time.perf_counter() - t0
+    new = fleet.lead()
+    if new != m.group(1):
+        raise AssertionError(f"{phase}: cluster.raft.ps names {m.group(1)}, "
+                             f"{new} leads")
+    while True:
+        a = assign(fleet.master, collection="raft")
+        if not a.error:
+            break
+        if time.perf_counter() - t0 > RAFT_WAIT_S:
+            raise AssertionError(f"{phase}: no assign after the loss of "
+                                 f"{old}: {a.error}")
+        time.sleep(0.1)
+    assign_s = time.perf_counter() - t0
+    new_vid = int(a.fid.split(",")[0])
+    if new_vid <= before:
+        raise AssertionError(f"{phase}: the new leader assigned volume "
+                             f"{new_vid}, not above {before}")
+    fleet.wait_nodes(set(fleet.volumes()))
+    rpc.reset_channels()
+    psout = out.getvalue().strip().replace("\n", "; ")
+    log(phase, f"SIGKILL of the Raft leader {old}: `cluster.raft.ps` named "
+               f"{new} after {ps_s:.3f} s (\"{psout}\"), an assign "
+               f"succeeded after {assign_s:.3f} s; the new volume {new_vid} "
+               f"is above every id assigned before the loss ({before}): "
+               f"MaxVolumeId was replicated; every volume server registered "
+               f"with the new leader")
+    return dict(name=name, port=port, old=old, new=new, ps_s=ps_s,
+                assign_s=assign_s)
+
+
+def _raft_rejoin(phase: str, fleet: _Fleet, rf: dict) -> dict:
+    """The killed master restarted on its -mdir rejoins as a follower;
+    `cluster.raft.remove` and `cluster.raft.add` of it from the shell."""
+    addr, port = rf["old"], rf["port"]
+    t0 = time.perf_counter()
+    fleet._spawn(rf["name"] + "-again", fleet.master_args[rf["name"]], port,
+                 "")
+    leader = fleet.lead()
+    while True:
+        try:
+            st = _json_get(port, "/cluster/raft/status")
+        except (OSError, ValueError):
+            st = {}
+        if st.get("role") == "follower" and st.get("leader") == leader:
+            break
+        if time.perf_counter() - t0 > RAFT_WAIT_S:
+            raise AssertionError(f"{phase}: {addr} did not rejoin: {st}")
+        time.sleep(0.1)
+    rejoin_s = time.perf_counter() - t0
+    rpc.reset_channels()
+    out, rm_s = fleet.shell("lock", f"cluster.raft.remove -id={addr}",
+                            "unlock")
+    peers = _json_get(fleet.master_port, "/cluster/raft/status")["peers"]
+    if f"removed {addr}" not in out or addr in peers:
+        raise AssertionError(f"{phase}: cluster.raft.remove said:\n{out}\n"
+                             f"the leader's peers {peers}")
+    out, add_s = fleet.shell("lock", f"cluster.raft.add -id={addr}",
+                             "unlock")
+    peers = _json_get(fleet.master_port, "/cluster/raft/status")["peers"]
+    if f"added {addr}" not in out or addr not in peers:
+        raise AssertionError(f"{phase}: cluster.raft.add said:\n{out}\n"
+                             f"the leader's peers {peers}")
+    ps, _ = fleet.shell("cluster.raft.ps")
+    members = re.findall(r"(\S+) Voter", ps)
+    # a membership change may move the lead: what follows asks the
+    # leader that is now
+    leads = fleet.lead()
+    fleet.wait_nodes(set(fleet.volumes()))
+    if sorted(members) != sorted(f"127.0.0.1:{p}"
+                                 for p in fleet.master_ports):
+        raise AssertionError(f"{phase}: cluster.raft.ps:\n{ps}")
+    log(phase, f"{addr} restarted on its -mdir: a follower of {leader} "
+               f"after {rejoin_s:.3f} s; shell cluster.raft.remove "
+               f"({rm_s:.3f} s) and cluster.raft.add ({add_s:.3f} s) of it: "
+               f"the leader's peers without it, then with it; "
+               f"cluster.raft.ps lists {len(members)} voters; {leads} "
+               f"leads")
+    return dict(rejoin_s=rejoin_s)
+
+
+def _query_records(rng) -> list[dict]:
+    names = ("ann", "bob", "cy", "dee", "eve")
+    return [{"id": i, "name": names[int(rng.integers(len(names)))],
+             "age": int(rng.integers(18, 90))} for i in range(QUERY_ROWS)]
+
+
+def _png(rng) -> bytes:
+    """A seeded RGB image as PNG bytes: through PIL where the machine has
+    it, else a stored-deflate PNG built here."""
+    import zlib
+
+    w, h = 97, 61
+    pixels = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    try:
+        from PIL import Image
+    except ImportError:
+        raw = b"".join(b"\x00" + pixels[y].tobytes() for y in range(h))
+
+        def chunk(kind, body):
+            return (struct.pack(">I", len(body)) + kind + body
+                    + struct.pack(">I", zlib.crc32(kind + body)))
+
+        return (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    import io
+
+    buf = io.BytesIO()
+    Image.fromarray(pixels).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _cli(phase: str, fleet: _Fleet, *args: str) -> tuple[str, float]:
+    """One `python3 -m seaweedfs_tpu_torch` command as a process, which
+    must exit 0; -> (its output, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+                       cwd=HERE, env=fleet.env, capture_output=True,
+                       text=True, timeout=CLUSTER_CALL_S)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: {' '.join(args)} exited "
+                             f"{r.returncode}:\n{r.stdout}\n"
+                             f"{r.stderr[-4000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def _sha_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(MIB), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _extras(phase: str, fleet: _Fleet, vid: int, replicas: list[str],
+            root: str, rng) -> dict:
+    """Before the encode of `vid`: `backup` of the live volume in full;
+    a JSON, a gzipped CSV and a PNG needle written into it; the PNG
+    resized on read through the C++ plane's hand-off to Python; the
+    master's and a volume server's /ui; `backup` again (incremental),
+    both as processes of the port; -> what the Query after the loss
+    needs."""
+    import gzip
+
+    from seaweedfs_tpu_torch import images
+    from seaweedfs_tpu_torch.operation import upload_data
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    src = replicas[0]
+    bdir = os.path.join(root, "backup")
+    out, full_s = _cli(phase, fleet, "backup", "-server", src, "-volumeId",
+                       str(vid), "-dir", bdir)
+    if "full backup" not in out:
+        raise AssertionError(f"{phase}: backup said {out!r}")
+    recs = _query_records(rng)
+    js = "".join(json.dumps(r) + "\n" for r in recs).encode()
+    csv_text = "id,name,age\n" + "".join(
+        f"{r['id']},{r['name']},{r['age']}\n" for r in recs)
+    gz = gzip.compress(csv_text.encode(), mtime=0)
+    png = _png(rng)
+    extra = {}
+    for i, (key, data, mime) in enumerate((
+            ("json", js, "application/json"),
+            ("csv", gz, "application/gzip"), ("png", png, "image/png"))):
+        # into the volume itself, through its primary (which replicates)
+        fid = f"{vid},{format_needle_id_cookie(QUERY_NEEDLE + i, 0x5EED)}"
+        r = upload_data(f"http://{src}/{fid}", data, mime=mime)
+        if r.error:
+            raise AssertionError(f"{phase}: the {key} needle: {r.error}")
+        extra[key] = (fid, data)
+
+    # the resize: the plane hands every GET with a query string to Python
+    have_pil = images._HAS_PIL
+    want = (images.resized(png, RESIZE_WIDTH, 0, "")[0] if have_pil
+            else png)
+    conn = http.client.HTTPConnection("127.0.0.1", fleet.port_of(src),
+                                      timeout=120)
+    try:
+        status, body, hopped = _request(
+            conn, "GET", f"/{extra['png'][0]}?width={RESIZE_WIDTH}")
+        if status != 200 or body != want or not hopped:
+            raise AssertionError(f"{phase}: ?width={RESIZE_WIDTH}: {status},"
+                                 f" {len(body)} B, 307 followed {hopped}")
+        # the status pages
+        pages = {}
+        for name, port, must in (
+                ("master", fleet.master_port,
+                 [a.encode() for a in fleet.volumes()]),
+                ("volume", fleet.port_of(src), [f"<td>{vid}</td>".encode()])):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                st, page = _http(c, "GET", "/ui")
+            finally:
+                c.close()
+            if st != 200 or not all(m in page for m in must):
+                raise AssertionError(f"{phase}: the {name} /ui: {st}, "
+                                     f"{len(page)} B")
+            pages[name] = len(page)
+    finally:
+        conn.close()
+
+    # the incremental backup: what the server appended since
+    out, inc_s = _cli(phase, fleet, "backup", "-server", src, "-volumeId",
+                      str(vid), "-dir", bdir)
+    if "incremental backup" not in out:
+        raise AssertionError(f"{phase}: the second backup said {out!r}")
+    files = rpc.volume_stub(rpc.grpc_address(src)).ReadVolumeFileStatus(
+        vs.ReadVolumeFileStatusRequest(volume_id=vid),
+        timeout=60).file_count
+    v = Volume(bdir, "c1", vid)
+    try:
+        held = v.file_count()
+        for key, (fid, data) in extra.items():
+            n = v.read_needle(int(fid.split(",")[1][:-8], 16))
+            if n.data != data and key != "json":
+                raise AssertionError(f"{phase}: the backup's {key} needle")
+    finally:
+        v.close()
+    if held != files:
+        raise AssertionError(f"{phase}: the backup holds {held} needles, "
+                             f"the server {files}")
+    log(phase, f"on live volume {vid}: `backup` in full ({full_s:.2f} s), "
+               f"a JSON, a gzipped CSV ({QUERY_ROWS} records each) and a "
+               f"PNG needle written; the PNG GET ?width={RESIZE_WIDTH} "
+               f"through the C++ plane's 307 to Python: "
+               f"{'resized by PIL, the bytes of images.resized' if have_pil else 'no PIL on this host: the stored bytes, as the reference gates it'}"
+               f"; /ui of the master ({pages['master']} B, every volume "
+               f"server named) and of {src} ({pages['volume']} B, volume "
+               f"{vid} named) 200; `backup` again, incremental "
+               f"({inc_s:.2f} s): {held} needles as the server holds; both "
+               f"as processes of the port")
+    return dict(records=recs, json=extra["json"][0], csv=extra["csv"][0])
+
+
+def _tools_step(phase: str, fleet: _Fleet, keep: str, collection: str,
+                vid: int) -> None:
+    """`fix`, `compact` and `export` (processes of the port) on a copy of
+    a volume never compacted: `fix` of the copy without its .idx gives
+    the .idx back byte for byte (compaction writes an .idx in another
+    order than the .dat's), and `export` writes every live needle."""
+    tdir = os.path.join(os.path.dirname(keep), "tools")
+    os.mkdir(tdir)
+    name = f"{collection}_{vid}"
+    shutil.copyfile(keep + ".dat", os.path.join(tdir, name + ".dat"))
+    ids, offs, sizes = idx.read_index_file(keep + ".idx")
+    live = {int(n): int(z) for n, z in zip(ids, sizes)}
+    live = {n for n, z in live.items() if not types.size_is_deleted(z)}
+    args = ("-dir", tdir, "-volumeId", str(vid), "-collection", collection)
+    _, fix_s = _cli(phase, fleet, "fix", *args)
+    if _sha_file(os.path.join(tdir, name + ".idx")) != _sha_file(
+            keep + ".idx"):
+        raise AssertionError(f"{phase}: fix did not give the .idx back")
+    _, cpt_s = _cli(phase, fleet, "compact", *args)
+    xdir = os.path.join(tdir, "export")
+    _, exp_s = _cli(phase, fleet, "export", *args, "-o", xdir)
+    got = {int(f, 16) for _, _, fs in os.walk(xdir) for f in fs}
+    if got != live:
+        raise AssertionError(f"{phase}: export wrote {len(got)} files of "
+                             f"{len(live)} live needles")
+    shutil.rmtree(tdir)
+    log(phase, f"on a copy of volume {vid} ({collection}, "
+               f"{os.path.getsize(keep + '.dat')} B): `fix` without its .idx "
+               f"gave the .idx back byte for byte ({fix_s:.2f} s); `compact` "
+               f"({cpt_s:.2f} s) and `export` ({exp_s:.2f} s): {len(got)} "
+               f"files, every live needle; each a process of the port")
+
+
+def _query_step(phase: str, fleet: _Fleet, vid: int, ex: dict,
+                where: dict) -> dict:
+    """The Query RPC over the JSON and the gzipped CSV needle of EC
+    volume `vid`, a server of it lost, on a surviving shard holder: the
+    records equal what `json` and `csv` give for the same filter."""
+    import csv as csv_mod
+    import io
+
+    holder = sorted(a for a in set(where.values()) if a in fleet.volumes())[0]
+    stub = rpc.volume_stub(rpc.grpc_address(holder))
+    k0 = fleet.k1()
+    got = {}
+    t0 = time.perf_counter()
+    for kind, fid in (("json", ex["json"]), ("csv", ex["csv"])):
+        req = vs.QueryRequest(from_file_ids=[fid],
+                              selections=["name", "age"] if kind == "csv"
+                              else [])
+        req.filter.field, req.filter.operand, req.filter.value = \
+            "age", ">", "50"
+        if kind == "csv":
+            req.input_serialization.compression_type = "GZIP"
+            req.input_serialization.csv_input.file_header_info = "USE"
+        else:
+            req.input_serialization.json_input.type = "LINES"
+        req.output_serialization.json_output.record_delimiter = "\n"
+        got[kind] = b"".join(s.records for s in stub.Query(req, timeout=300))
+    query_s = time.perf_counter() - t0
+    recs = ex["records"]
+    want_json = "".join(json.dumps(r) + "\n" for r in recs
+                        if r["age"] > 50).encode()
+    rows = csv_mod.DictReader(io.StringIO("id,name,age\n" + "".join(
+        f"{r['id']},{r['name']},{r['age']}\n" for r in recs)))
+    want_csv = "".join(json.dumps({"name": r["name"], "age": int(r["age"])})
+                       + "\n" for r in rows
+                       if int(r["age"]) > 50).encode()
+    if got["json"] != want_json or got["csv"] != want_csv:
+        raise AssertionError(f"{phase}: Query on {holder}: json "
+                             f"{got['json'][:200]!r}, csv "
+                             f"{got['csv'][:200]!r}")
+    k1 = _k1_step(k0, fleet.k1())
+    log(phase, f"Query (gRPC) on {holder} over the JSON and the gzipped "
+               f"CSV needle of EC volume {vid} with a server lost, filter "
+               f"age > 50: {got['json'].count(b'{')} and "
+               f"{got['csv'].count(b'{')} records, equal to what json and "
+               f"csv give ({query_s:.3f} s); K1 launches by R {k1}")
+    return dict(query_s=query_s, k1=k1)
+
+
 def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The operator's path through a cluster of processes on the card
     (see the module docstring); -> K1's launches. Which encode runs
-    where: the 192 MiB volume of c1 and the four volumes of c4 take the
+    where: the 128 MiB volume of c1 and the four volumes of c4 take the
     default, streamed path (VolumeEcShardsGenerateStreamed on each source,
     K1 there while the shards stream); the RS(6,3) volume of c5 the copy
     path (`-stream 0`: VolumeEcShardsGenerate, then VolumeEcShardsCopy)."""
@@ -2768,17 +3254,20 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     cached = _build.library_path("gf_xor.cu").exists()
     try:
         t0 = time.perf_counter()
-        fleet.spawn_master()
+        fleet.spawn_raft_masters(RAFT_MASTERS)
         for i, rack in enumerate(CLUSTER_RACKS):
             fleet.spawn_volume(f"v{i}", rack)
-        up_s = fleet.wait_up(["master"] + [f"v{i}" for i in
-                                           range(len(CLUSTER_RACKS))])
+        up_s = fleet.wait_up(
+            ["master"] + [f"master{i}" for i in range(1, RAFT_MASTERS)]
+            + [f"v{i}" for i in range(len(CLUSTER_RACKS))])
         rpc.reset_channels()  # no channel dialled before the listeners
         _, empty_s = fleet.shell("volume.list")
         nodes = [f"{n[0]}-{n[-1]}" if n[-1] - n[0] + 1 == len(n) else n
                  for n in numa.node_cpus()]
-        log(phase, f"one master (-volumeSizeLimitMB {CLUSTER_LIMIT_MB} "
-                   f"-defaultReplication 001) and {len(CLUSTER_RACKS)} "
+        log(phase, f"{RAFT_MASTERS} masters of one Raft group (-peers, "
+                   f"-mdir, -volumeSizeLimitMB {CLUSTER_LIMIT_MB} "
+                   f"-defaultReplication 001; {fleet.master.split(',')[0]} "
+                   f"leads) and {len(CLUSTER_RACKS)} "
                    f"volume servers (default coder, racks "
                    f"{'/'.join(CLUSTER_RACKS)}) started at once: all "
                    f"registered in {up_s:.2f} s; K1's library was "
@@ -2860,6 +3349,10 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"every needle read back from each replica, byte-exact "
                    f"or 404 ({_ms(back_ms)})")
 
+        # 2b. the offline tools on the live volume; the Query needles, the
+        # resize and the status pages
+        ex = _extras(phase, fleet, vid, replicas, root, rng)
+
         # 3. ec.encode from the shell: the default, streamed path (the
         # source streams each destination's shards while K1 runs)
         source = replicas[0]
@@ -2924,6 +3417,10 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                                  f"failed or missed a destination: {sstep}, "
                                  f"{said}, manifests {manifests}")
 
+        # 3b. the Raft group's leader lost: what follows runs through the
+        # new one
+        rf = _raft_failover(phase, fleet)
+
         # 4. the server that holds 4 shards lost; 8 readers through lookups
         victim = next(a for a, sids in sorted(by_server.items())
                       if len(sids) == 4)
@@ -2955,6 +3452,7 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         if not sum(get_k1.values()):
             raise AssertionError(f"{phase}: the degraded GETs never launched "
                                  f"K1")
+        qs = _query_step(phase, fleet, vid, ex, where)
 
         # 5. a fresh, empty server in the lost one's rack; ec.rebuild. It
         # drops one incoming shard stream once, at a slab about a third
@@ -3022,9 +3520,16 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"second pass found none; shards sha-identical; K1 "
                    f"launches by R {_k1_step(k4, k5)}")
 
+        # 6a. the killed master back: a follower, removed and added again
+        rj = _raft_rejoin(phase, fleet, rf)
+
         # 6b. config #4: volumes streamed at once, the fresh server flapping
         multi = _multi_stream(phase, fleet, rng, payload, workdir, root,
                               empty_s, fresh, flap_at)
+        # 6c. the offline tools on a copy of one of those volumes
+        c4 = min(int(f[3:-4]) for f in os.listdir(root)
+                 if f.startswith("c4_") and f.endswith(".dat"))
+        _tools_step(phase, fleet, os.path.join(root, f"c4_{c4}"), "c4", c4)
         k5 = fleet.k1()
 
         # 7. ec.decode back to a plain volume; every needle GET once more
@@ -3095,7 +3600,8 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f" NativeRequests, NativeSendfile) {planes}; 307s this "
                    f"script followed so far {dict(REDIRECTS)}")
         dirs = {n: d for n, (_, _, _, d) in fleet.procs.items()
-                if n != "master" and fleet.procs[n][0].poll() is None}
+                if not n.startswith("master")
+                and fleet.procs[n][0].poll() is None}
         rcs = fleet.terminate()
         if set(rcs.values()) != {0}:
             raise AssertionError(f"{phase}: exit codes on SIGTERM {rcs}")
@@ -3112,6 +3618,9 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"GETs on a lost shard {_ms(deg)}, "
                    f"rebuild {survivor_bytes / (reb_s - empty_s) / 1e9:.3f} "
                    f"GB/s, scrub {scrub_s:.3f} s, decode {dec_s:.3f} s; "
+                   f"Raft failover: cluster.raft.ps {rf['ps_s']:.3f} s, "
+                   f"assign {rf['assign_s']:.3f} s, rejoin "
+                   f"{rj['rejoin_s']:.3f} s; Query {qs['query_s']:.3f} s; "
                    f"gf_xor by R over every server {dict(sorted(by_r.items()))}"
                    f"; phase wall {time.perf_counter() - t_phase:.3f} s; "
                    f"nvidia-smi: {smi}")
@@ -3129,10 +3638,10 @@ def cluster_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
 FILER_LIMIT_MB = 256  # the master's -volumeSizeLimitMB
 FILER_COLLECTION = "fc"
-FILER_SMALL = 400  # files of 1-64 KiB: FILER_WIDE in one directory,
-FILER_WIDE = 300  # the rest in FILER_DIRS nested directories
+FILER_SMALL = 250  # files of 1-64 KiB: FILER_WIDE in one directory,
+FILER_WIDE = 150  # the rest in FILER_DIRS nested directories
 FILER_DIRS = 64
-FILER_LARGE = 24  # files of 8-64 MiB: 2-16 chunks at the default -maxMB 4
+FILER_LARGE = 16  # files of 8-64 MiB: 2-16 chunks at the default -maxMB 4
 FILER_LARGE_MIB = (8, 64)
 FILER_CHUNK = 4 * MIB
 FILER_PAGE = 100  # the paged listing's limit
@@ -3241,7 +3750,7 @@ def _wait_listed(fleet: _Fleet, vols: dict) -> None:
     bytes, so that ec.encode -fullPercent selects every one."""
     from seaweedfs_tpu_torch.pb import master_pb2
 
-    stub = rpc.master_stub(rpc.grpc_address(fleet.master))
+    stub = rpc.master_stub(rpc.grpc_address(fleet.leader()))
     want = {vid: os.path.getsize(os.path.join(
         d, f"{FILER_COLLECTION}_{vid}.dat")) for vid, (_, d) in vols.items()}
     t0 = time.perf_counter()
@@ -3262,7 +3771,7 @@ def _wait_listed(fleet: _Fleet, vols: dict) -> None:
 
 
 S3_BUCKET = "smoke"
-S3_OBJECTS = 250  # objects of 1-64 KiB over S3_PREFIXES prefixes
+S3_OBJECTS = 120  # objects of 1-64 KiB over S3_PREFIXES prefixes
 S3_PREFIXES = 16
 S3_MULTIPART = 4  # objects of S3_MULTIPART_MIB in S3_PART parts
 S3_MULTIPART_MIB = (24, 48)
@@ -3586,7 +4095,7 @@ def _s3_reads(phase: str, fleet: _Fleet, sport: int, faddr: str, s3w: dict,
 
 # -- the other gateways (webdav, ftp, iam, mq.broker, mount) -------------------
 
-GW_FILES = 50  # files of 1-64 KiB through mount and through WebDAV
+GW_FILES = 25  # files of 1-64 KiB through mount and through WebDAV
 GW_DIRS = 6
 GW_LARGE_MIB = 24  # one file through mount (past its 16 MiB budget), WebDAV
 GW_FTP_FILES = 30
@@ -3595,7 +4104,7 @@ GW_MOUNT_MEMORY_MB = 16
 GW_PASSIVE = 40  # the FTP gateway's passive ports
 GW_IAM_USER = "gw-user"
 MQ_TOPIC = ("gw", "events")
-MQ_RECORDS = 2_000  # of 100-1,000 B, half through gRPC, half through HTTP
+MQ_RECORDS = 1_000  # of 100-1,000 B, half through gRPC, half through HTTP
 MQ_PARTITIONS = 4
 MQ_RING = 4096  # a segment's partition is one range of this ring
 GW_NAMES = ("webdav", "ftp", "iam", "mq", "mount")
@@ -5054,8 +5563,8 @@ def _tools_reads(phase: str, fleet: _Fleet, tools: _Tools, ftw: dict,
 
 # -- the postgres2 filer (the filer's network metadata stores) -----------------
 
-PG_FILES = 400  # files of 1-64 KiB: PG_WIDE in one directory, the rest in
-PG_WIDE = 300  # the buckets of PG_BUCKETS
+PG_FILES = 200  # files of 1-64 KiB: PG_WIDE in one directory, the rest in
+PG_WIDE = 150  # the buckets of PG_BUCKETS
 PG_BUCKETS = ("pg-one", "pg-two")  # one table each in the fake
 PG_LARGE_MIB = 24
 PG_SAMPLE = 100  # files listed and read back after its restart
@@ -5268,6 +5777,137 @@ def _stores_reads(phase: str, fleet: _Fleet, pgf: _PgFiler, sw: dict,
                 files_s=len(sw["paths"]) / sw["write_s"])
 
 
+TIER_VID = 900  # the tiered volume, allocated on its own server
+TIER_COLLECTION = "tier"
+TIER_BUCKET = "tier"  # the S3 bucket the tier backend writes into
+TIER_MB = 32  # needle bytes of 1-64 KiB in the tiered volume
+# readers of the tiered volume: each read crosses the volume server, the
+# gateway, the filer and the erasure-coded chunk's servers, so it waits
+# far more than it works
+TIER_READERS = 32
+
+
+def _tier_config(root: str, sport: int) -> str:
+    """The -tierConfig file: an `s3` backend at the fleet's own gateway,
+    signed with the S3 step's identity; -> its path."""
+    path = os.path.join(root, "tier.json")
+    with open(path, "w") as f:
+        json.dump({"s3": {"default": {
+            "endpoint": f"http://127.0.0.1:{sport}", "bucket": TIER_BUCKET,
+            "access_key": S3_IDENTITY[1], "secret_key": S3_IDENTITY[2]}}}, f)
+    return path
+
+
+def _tier_writes(phase: str, fleet: _Fleet, vt: str, sport: int,
+                 payload: bytes, rng) -> dict:
+    """Before the encode: TIER_MB of seeded needles into the volume on `vt`,
+    `volume.tier.upload` of it to the S3 gateway's bucket, every needle
+    read back from the remote .dat; -> what the reads after the loss
+    need."""
+    s3 = _S3Client(sport)
+    conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=600)
+    try:
+        st, body, _ = s3.call(conn, "PUT", f"/{TIER_BUCKET}")
+        if st != 200:
+            raise AssertionError(f"{phase}: bucket {TIER_BUCKET}: {st} {body}")
+    finally:
+        conn.close()
+    needles, total = [], 0
+    while total < TIER_MB * MIB:
+        size = int(rng.integers(1, 64 * 1024 + 1))
+        needles.append((len(needles) + 1, int(rng.integers(1, 1 << 32)),
+                        int(rng.integers(0, len(payload) - size)), size))
+        total += size
+    port = fleet.port_of(vt)
+
+    def put(conn, needle):
+        nid, cookie, start, size = needle
+        status, _ = _http(conn, "POST", "/" + _fid(nid, cookie, TIER_VID),
+                          payload[start:start + size])
+        if status != 201:
+            raise AssertionError(f"{phase}: POST of tier needle {nid}: "
+                                 f"{status}")
+
+    t0 = time.perf_counter()
+    _clients(port, put, needles)
+    write_s = time.perf_counter() - t0
+    base = os.path.join(fleet.volumes()[vt][1],
+                        f"{TIER_COLLECTION}_{TIER_VID}")
+    dat_sha, dat_bytes = _sha_file(base + ".dat"), os.path.getsize(
+        base + ".dat")
+    out, up_s = fleet.shell(
+        "lock", f"volume.tier.upload -node {vt} -volumeId {TIER_VID} "
+                f"-dest s3", "unlock")
+    if f"moved {dat_bytes} bytes" not in out or \
+            os.path.exists(base + ".dat") or not os.path.exists(
+                base + ".tier"):
+        raise AssertionError(f"{phase}: volume.tier.upload said:\n{out}")
+    conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=600)
+    try:
+        st, _, r = s3.call(conn, "HEAD",
+                           f"/{TIER_BUCKET}/{TIER_COLLECTION}_{TIER_VID}.dat")
+        if st != 200 or int(r.getheader("Content-Length")) != dat_bytes:
+            raise AssertionError(f"{phase}: the tiered object: {st}")
+    finally:
+        conn.close()
+    r0 = dict(REDIRECTS)
+    read_ms = _get_all(phase, port, needles, payload, vid=TIER_VID,
+                       clients=TIER_READERS)
+    hops = REDIRECTS["GET"] - r0.get("GET", 0)
+    log(phase, f"tiering: volume {TIER_VID} (collection {TIER_COLLECTION}) "
+               f"on {vt} (-tierConfig: an s3 backend at this fleet's S3 "
+               f"gateway, bucket {TIER_BUCKET}): {len(needles)} needles "
+               f"({total} B of 1-64 KiB; a deployment's volume holds up to "
+               f"30 GB) POSTed by {SERVER_CLIENTS} clients in "
+               f"{write_s:.3f} s; shell volume.tier.upload moved its .dat "
+               f"({dat_bytes} B, sha256 {dat_sha[:16]}...) in {up_s:.3f} s = "
+               f"{dat_bytes / up_s / 1e6:.1f} MB/s of shell wall; the .dat "
+               f"left the disk, the bucket holds it; every needle read back "
+               f"byte-exact from the remote .dat ({_ms(read_ms)}, "
+               f"{total / sum(read_ms) * TIER_READERS / 1e6:.1f} MB/s by "
+               f"{TIER_READERS} readers; {hops} through the C++ plane's "
+               f"307, which let go of the volume)")
+    if hops != len(needles):
+        raise AssertionError(f"{phase}: {hops} of {len(needles)} tiered "
+                             f"GETs were handed to Python")
+    return dict(vt=vt, needles=needles, base=base, sha=dat_sha,
+                bytes=dat_bytes, total=total)
+
+
+def _tier_reads(phase: str, fleet: _Fleet, tw: dict, payload: bytes) -> dict:
+    """After the loss: every tiered needle read again (the bucket's chunks
+    are erasure-coded, K1 at R = 4), `volume.tier.download`, the .dat
+    back with its sha256, every needle read once more."""
+    vt, port = tw["vt"], fleet.port_of(tw["vt"])
+    k0 = fleet.k1()
+    t0 = time.perf_counter()
+    lost_ms = _get_all(phase, port, tw["needles"], payload, vid=TIER_VID,
+                       clients=TIER_READERS)
+    lost_s = time.perf_counter() - t0
+    k1 = _k1_step(k0, fleet.k1())
+    if not k1.get(4):
+        raise AssertionError(f"{phase}: the tiered reads after the loss "
+                             f"launched K1 by R {k1}, none at R = 4")
+    out, down_s = fleet.shell(
+        "lock", f"volume.tier.download -node {vt} -volumeId {TIER_VID}",
+        "unlock")
+    if f"downloaded {tw['bytes']} bytes" not in out or \
+            os.path.exists(tw["base"] + ".tier") or \
+            _sha_file(tw["base"] + ".dat") != tw["sha"]:
+        raise AssertionError(f"{phase}: volume.tier.download said:\n{out}")
+    local_ms = _get_all(phase, port, tw["needles"], payload, vid=TIER_VID)
+    log(phase, f"tiering after the loss: every tiered needle read back "
+               f"byte-exact through the gateway and the erasure-coded "
+               f"bucket by {TIER_READERS} readers in {lost_s:.3f} s "
+               f"({tw['total'] / lost_s / 1e6:.1f} MB/s; {_ms(lost_ms)}; K1 "
+               f"launches by R {k1}); shell "
+               f"volume.tier.download in {down_s:.3f} s = "
+               f"{tw['bytes'] / down_s / 1e6:.1f} MB/s of shell wall, the "
+               f".dat back with its sha256; every needle read once more "
+               f"({_ms(local_ms)})")
+    return dict(k1=k1, lost_ms=lost_ms, down_s=down_s)
+
+
 def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
     """The filer as an operator runs it (see the module docstring):
     files written through its HTTP API, their volumes erasure-coded by
@@ -5299,18 +5939,27 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         sport = _free_port_pair()
         while sport in fleet.ports() + [fleet.master_port]:
             sport = _free_port_pair()
+        # the tiered volume's server: room for it and one more volume
+        fleet.spawn_volume("vt", "r0", args=(
+            "-max", "2", "-tierConfig", _tier_config(root, sport)))
         s3_modules = os.path.join(root, "s3.modules")
         fleet._spawn("s3", ["s3", "-port", str(sport), "-filer", faddr],
                      sport, "", modules=s3_modules)
         gw = _Gateways(fleet, root, faddr)
         tools = _Tools(fleet, root, faddr, fenv)
         pgf = _PgFiler(fleet, root, fenv)
-        up_s = fleet.wait_up(["master", "filer", "s3", "filerPG"] +
+        up_s = fleet.wait_up(["master", "filer", "s3", "filerPG", "vt"] +
                              [f"v{i}" for i in range(len(CLUSTER_RACKS))])
         gw.wait_up(["webdav", "ftp", "iam", "mq"]
                    + (["mount"] if gw.kernel else []))
         up_s = time.perf_counter() - t_phase
         rpc.reset_channels()  # no channel dialled before the listeners
+        # the tiered volume, before the filer's writes grow volumes there
+        vt = next(a for a, (n, _) in fleet.volumes().items() if n == "vt")
+        rpc.volume_stub(rpc.grpc_address(vt)).AllocateVolume(
+            vs.AllocateVolumeRequest(volume_id=TIER_VID,
+                                     collection=TIER_COLLECTION,
+                                     replication="000"), timeout=60)
         log(phase, f"one master (-volumeSizeLimitMB {FILER_LIMIT_MB}), "
                    f"{len(CLUSTER_RACKS)} volume servers (default coder, "
                    f"racks {'/'.join(CLUSTER_RACKS)}), a filer (-store "
@@ -5320,7 +5969,7 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"{'a kernel mount' if gw.kernel else 'an in-process mount'}"
                    f" over it started at once: up in {up_s:.2f} s")
 
-        # 2. about 1 GiB of files through the filer's HTTP API, 8 clients
+        # 2. about 0.6 GB of files through the filer's HTTP API, 8 clients
         rng = np.random.default_rng(seed)
         files = _FilerFiles(rng)
         paths = sorted(files.items, key=lambda p: (files.items[p][1]
@@ -5359,6 +6008,13 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
             if names != wide:
                 raise AssertionError(f"{phase}: the paged listing of "
                                      f"/fs/wide gave {len(names)} names")
+            # the filer's HTML listing (server/ui.py)
+            status, page = _http(conn, "GET", "/fs/wide/?ui=1")
+            if status != 200 or not all(
+                    f">{p.rsplit('/', 1)[1]}<".encode() in page
+                    for p in wide):
+                raise AssertionError(f"{phase}: the /fs/wide/?ui page: "
+                                     f"{status}, {len(page)} B")
             # one rename through the filer's gRPC API, one recursive delete
             moved = large[0].replace("/L", "/moved-L")
             rpc.filer_stub(rpc.grpc_address(faddr)).AtomicRenameEntry(
@@ -5396,7 +6052,8 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"{(len(paths) + len(gone)) / write_s:.0f} files/s; "
                    f"every file GET byte-exact with its md5 ETag "
                    f"({_ms(live_ms)}); range GETs across a chunk boundary; "
-                   f"/fs/wide listed in {pages} pages of {FILER_PAGE}; "
+                   f"/fs/wide listed in {pages} pages of {FILER_PAGE} and "
+                   f"as its HTML page ({len(page)} B, every file named); "
                    f"{large[0]} renamed (gRPC AtomicRenameEntry); /fs/d7 "
                    f"deleted recursively ({len(gone)} files)")
 
@@ -5414,6 +6071,10 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
 
         # 2e. a filer on a network metadata store: postgres2
         sw = _stores_writes(phase, pgf, files.payload, rng)
+
+        # 2f. a volume tiered to the S3 gateway: its bucket's chunks are
+        # erasure-coded below with the rest
+        tw = _tier_writes(phase, fleet, vt, sport, files.payload, rng)
 
         # 3. the shell's streamed ec.encode of every volume holding chunks
         vols = _filer_volumes(fleet)
@@ -5469,6 +6130,7 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         for vid, w in where.items():
             for sid, a in w.items():
                 held.setdefault(a, {}).setdefault(vid, []).append(sid)
+        held.pop(vt, None)  # the tiered volume's server stays up
         victim = max(sorted(held), key=lambda a: (
             max(len(s) for s in held[a].values()) == 4,
             sum(len(s) for s in held[a].values())))
@@ -5522,6 +6184,10 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
         if not get_k1.get(4):
             raise AssertionError(f"{phase}: the degraded GETs launched K1 "
                                  f"by R {get_k1}, none at R = 4")
+
+        # 4t. the tiered volume read through the erasure-coded bucket,
+        # then downloaded
+        tr = _tier_reads(phase, fleet, tw, files.payload)
 
         # 4a. the postgres2 filer's files, listing, bucket delete, restart
         pgr = _stores_reads(phase, fleet, pgf, sw, touching, seed)
@@ -5664,7 +6330,9 @@ def filer_phase(seed: int, workdir: str, card: str, smi: str) -> dict:
                    f"lost shard {_ms(pgr['deg'])}, others "
                    f"{_ms(pgr['rest'])}, K1 in them {pgr['k1']}, listing "
                    f"{pgr['list_s']:.3f} s, restart {pgr['restart_s']:.2f} s"
-                   f"; webdav, ftp and iam exit "
+                   f"; tiering: upload {tw['bytes']} B, reads after the "
+                   f"loss {_ms(tr['lost_ms'])}, K1 in them {tr['k1']}, "
+                   f"download {tr['down_s']:.3f} s; webdav, ftp and iam exit "
                    f"0 on SIGTERM, none with jax or seaweedfs_tpu; gf_xor "
                    f"by R over every server "
                    f"{dict(sorted(by_r.items()))}; phase wall "
@@ -6010,7 +6678,7 @@ def main(argv=None) -> int:
                     help="size of the K1 pipeline's volume (default 1024)")
     ap.add_argument("--bits-volume-mb", type=int, default=64,
                     help="size of the K2 pipeline's volume (default 64)")
-    ap.add_argument("--sched-volume-mb", type=int, default=512,
+    ap.add_argument("--sched-volume-mb", type=int, default=256,
                     help="size of each concurrent volume of the K3 "
                          "pipeline (default 512)")
     ap.add_argument("--sched-volumes", type=int, default=8,

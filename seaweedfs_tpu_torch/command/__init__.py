@@ -2,13 +2,16 @@
 SeaweedFS weed/weed.go:47, weed/command/command.go:11-45). Run as
 `python -m seaweedfs_tpu_torch <cmd>`.
 
-Subcommands: master, volume, filer, s3, server (master + volume, and a
-filer with -filer, a filer and an S3 gateway with -s3, in one process),
+Subcommands: master (a Raft group with -peers and -mdir),
+master.follower, volume (tier backends with -tierConfig), filer, s3,
+server (master + volume, and a filer with -filer, a filer and an S3
+gateway with -s3, in one process),
 the gateways over a filer (webdav, ftp, iam, mq.broker, and mount or
 fuse, a FUSE mount), the filer's tools (filer.sync, filer.replicate,
 filer.backup, filer.cat, filer.copy, filer.meta.tail, filer.meta.backup,
 filer.remote.sync, filer.remote.gateway), shell, upload, download,
-benchmark, version. The volume servers' erasure coder is the CUDA card by
+benchmark, the offline volume tools (backup, compact, fix, export),
+scaffold, autocomplete, unautocomplete, update, version. The volume servers' erasure coder is the CUDA card by
 default (`-coder cuda`): without one they fail at start, and nothing
 falls back to the CPU unless `-coder cpu` (numpy) or `-coder native`
 (g++) asks for it. `volume` and `server` serve needles from the C++
@@ -16,10 +19,7 @@ data plane (native/dataplane.cpp, built with g++ at first use) wherever
 it builds and no JWT key or whitelist guard is set, as the reference's
 `-nativeDataPlane auto` does; `on` fails at start with g++'s error where
 it cannot build, `off` keeps the Python plane. `server -filer` runs the
-filer's C++ hot plane over that volume plane. The master's Raft group
-(`-peers`) and the offline tools are not part of the port yet: their
-commands and flags fail at start, naming the ROADMAP.md item that will
-port them (`DEFERRED`).
+filer's C++ hot plane over that volume plane.
 The tools that follow a filer's metadata stream run until SIGINT or
 SIGTERM, and then exit 0; a stream the filer drops is followed again from
 the last event.
@@ -31,18 +31,6 @@ import argparse
 import signal
 import sys
 import threading
-
-ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
-ROADMAP_OFFLINE = "ROADMAP.md A2d (offline tools)"
-
-#: the reference's subcommands the port does not carry yet, each with
-#: the ROADMAP.md item that will port it
-DEFERRED = {
-    "master.follower": ROADMAP_RAFT,
-    **{c: ROADMAP_OFFLINE for c in ("backup", "compact", "fix", "export",
-                                    "scaffold", "autocomplete",
-                                    "unautocomplete", "update")},
-}
 
 
 def main(argv=None) -> int:
@@ -65,12 +53,9 @@ def main(argv=None) -> int:
     mp.add_argument("-defaultReplication", default="000")
     mp.add_argument("-garbageThreshold", type=float, default=0.3)
     mp.add_argument("-peers", default="",
-                    help="comma-separated master peers for Raft HA (not "
-                         "part of the port yet: a non-empty value fails "
-                         "at start)")
+                    help="comma-separated master peers for Raft HA")
     mp.add_argument("-mdir", default="",
-                    help="directory for Raft state persistence (used only "
-                         "with -peers)")
+                    help="directory for Raft state persistence")
     mp.add_argument("-metricsAddress", default="",
                     help="Prometheus push-gateway, broadcast to the fleet")
     mp.add_argument("-metricsIntervalSec", type=int, default=15)
@@ -94,9 +79,9 @@ def main(argv=None) -> int:
                     help="needle-map index kind (leveldb = sqlite-backed "
                          "low-memory on-disk map)")
     vp.add_argument("-tierConfig", default="",
-                    help="JSON file of tier backends (tiered storage is "
-                         "not part of the port yet: a non-empty value "
-                         "fails at start)")
+                    help="JSON file of tier backends, e.g. "
+                         '{"s3": {"default": {"endpoint": '
+                         '"http://localhost:8333", "bucket": "tier"}}}')
     vp.add_argument("-nativeDataPlane", dest="native", default="auto",
                     nargs="?", const="on", choices=["auto", "on", "off"],
                     help="serve needle GET/PUT/DELETE from the C++ data "
@@ -153,6 +138,9 @@ def main(argv=None) -> int:
                     choices=["auto", "on", "off"],
                     help="C++ needle data plane on the volume public port "
                          "(as volume -nativeDataPlane)")
+    sp.add_argument("-volume.tierConfig", dest="volume_tier_config",
+                    default="", help="JSON file of tier backends "
+                                     "(as volume -tierConfig)")
 
     shp = sub.add_parser("shell", help="admin shell (commands on stdin)")
     shp.add_argument("-master", default="localhost:9333")
@@ -302,15 +290,53 @@ def main(argv=None) -> int:
                     "(filer=host:port,collection=c,replication=xyz,"
                     "chunkSizeLimitMB=n,cacheDir=d)")
 
-    sub.add_parser("version", help="print version")
-    # registered so that global flags before them parse; they refuse below
-    for name, item in DEFERRED.items():
-        sub.add_parser(name, add_help=False, help=f"refuses: {item}")
+    mfp = sub.add_parser("master.follower",
+                         help="run a follower master (requires -peers)")
+    mfp.add_argument("-ip", default="localhost")
+    mfp.add_argument("-port", type=int, default=9334)
+    mfp.add_argument("-peers", required=True)
+    mfp.add_argument("-mdir", default="")
 
-    opts, _ = p.parse_known_args(argv)
-    if opts.cmd in DEFERRED:
-        raise SystemExit(f"{opts.cmd} is not part of the PyTorch port yet: "
-                         f"{DEFERRED[opts.cmd]}")
+    sub.add_parser("autocomplete", help="print bash completion script")
+    sub.add_parser("unautocomplete",
+                   help="print command to remove bash completion")
+    sub.add_parser("update", help="self-update (not applicable here)")
+
+    bk = sub.add_parser("backup", help="backup a live volume locally")
+    bk.add_argument("-master", default="localhost:9333")
+    bk.add_argument("-server", default="", help="volume server (else lookup)")
+    bk.add_argument("-volumeId", type=int, required=True)
+    bk.add_argument("-dir", default=".")
+
+    cpt = sub.add_parser("compact", help="offline-compact a local volume")
+    cpt.add_argument("-dir", default=".")
+    cpt.add_argument("-volumeId", type=int, required=True)
+    cpt.add_argument("-collection", default="")
+
+    fxp = sub.add_parser("fix", help="rebuild .idx from .dat")
+    fxp.add_argument("-dir", default=".")
+    fxp.add_argument("-volumeId", type=int, required=True)
+    fxp.add_argument("-collection", default="")
+
+    exp = sub.add_parser("export", help="extract files from a local volume")
+    exp.add_argument("-dir", default=".")
+    exp.add_argument("-volumeId", type=int, required=True)
+    exp.add_argument("-collection", default="")
+    exp.add_argument("-o", dest="output", default="./export")
+
+    # the 5-byte-offset mode is process-wide (reference: 5BytesOffset build
+    # tag): every tool that opens .idx/.dat takes the flag
+    for sc in (bk, cpt, fxp, exp):
+        sc.add_argument("-largeDisk", action="store_true",
+                        help="5-byte needle offsets (8TB volumes); must "
+                             "match the mode the volume files were "
+                             "written with")
+
+    sub.add_parser("version", help="print version")
+    scp = sub.add_parser("scaffold", help="print a sample config")
+    scp.add_argument("-config", default="filer",
+                     choices=["filer", "master", "security", "shell"])
+
     opts = p.parse_args(argv)
     if opts.cmd is None:
         p.print_help()
@@ -353,6 +379,17 @@ def _use_native_plane(cmd: str, mode: str) -> bool:
                      f"the Python plane serves: {e}")
         return False
     return True
+
+
+def _tier_config(path: str) -> dict | None:
+    """The JSON file of -tierConfig (master.toml's [storage.backend]
+    shape), or None without one."""
+    if not path:
+        return None
+    import json
+
+    with open(path) as f:
+        return json.load(f)
 
 
 def _wait_forever():
@@ -651,19 +688,17 @@ def _run(opts) -> int:
         from ..utils.config import load_security_config
 
         sec = load_security_config()
-        try:
-            ms = MasterServer(ip=opts.ip, port=opts.port,
-                              volume_size_limit_mb=opts.volumeSizeLimitMB,
-                              default_replication=opts.defaultReplication,
-                              garbage_threshold=opts.garbageThreshold,
-                              peers=[p.strip() for p in opts.peers.split(",")
-                                     if p.strip()] or None,
-                              metrics_address=opts.metricsAddress,
-                              metrics_interval_sec=opts.metricsIntervalSec,
-                              write_jwt_key=sec["write_key"],
-                              jwt_expires_sec=sec["expires_sec"])
-        except NotImplementedError as e:
-            raise SystemExit(f"master: {e}")
+        ms = MasterServer(ip=opts.ip, port=opts.port,
+                          volume_size_limit_mb=opts.volumeSizeLimitMB,
+                          default_replication=opts.defaultReplication,
+                          garbage_threshold=opts.garbageThreshold,
+                          peers=[p.strip() for p in opts.peers.split(",")
+                                 if p.strip()] or None,
+                          raft_dir=opts.mdir or None,
+                          metrics_address=opts.metricsAddress,
+                          metrics_interval_sec=opts.metricsIntervalSec,
+                          write_jwt_key=sec["write_key"],
+                          jwt_expires_sec=sec["expires_sec"])
         ms.start()
         _wait_forever()
         ms.stop()
@@ -683,7 +718,9 @@ def _run(opts) -> int:
             vsrv = VolumeServer(directories=opts.dir.split(","),
                                 master=f"{opts.ip}:{opts.master_port}",
                                 ip=opts.ip, port=opts.volume_port,
-                                coder=coder, native=use_native)
+                                coder=coder, native=use_native,
+                                tier_backends=_tier_config(
+                                    opts.volume_tier_config))
         except (RuntimeError, NotImplementedError) as e:
             raise SystemExit(f"server: {e}")
         fs = None
@@ -909,12 +946,7 @@ def _run(opts) -> int:
         # cuda: the Store builds new_coder() itself, on the card
         coder = (None if opts.coder == "cuda"
                  else new_coder(backend=opts.coder))
-        tier_conf = None
-        if opts.tierConfig:
-            import json as _json
-
-            with open(opts.tierConfig) as f:
-                tier_conf = _json.load(f)
+        tier_conf = _tier_config(opts.tierConfig)
         from ..security import Guard
         from ..utils.config import load_security_config
 
@@ -943,6 +975,58 @@ def _run(opts) -> int:
         vsrv.start()
         _wait_forever()
         vsrv.stop()
+        return 0
+
+    if opts.cmd == "master.follower":
+        from ..server.master import MasterServer
+
+        ms = MasterServer(ip=opts.ip, port=opts.port,
+                          peers=[p.strip() for p in opts.peers.split(",")
+                                 if p.strip()],
+                          raft_dir=opts.mdir or None)
+        ms.start()
+        _wait_forever()
+        ms.stop()
+        return 0
+
+    if opts.cmd == "unautocomplete":
+        print("complete -r weed-tpu 2>/dev/null  # remove bash completion")
+        return 0
+
+    if opts.cmd == "autocomplete":
+        cmds = " ".join(sorted(
+            c for c in ("master volume filer s3 webdav iam mq.broker "
+                        "server shell mount upload download benchmark "
+                        "backup compact fix export filer.sync "
+                        "filer.replicate filer.backup filer.cat filer.copy "
+                        "filer.meta.tail filer.meta.backup "
+                        "filer.remote.sync filer.remote.gateway "
+                        "master.follower version scaffold fuse "
+                        "unautocomplete update").split()))
+        print(f"""# bash completion for weed-tpu
+_weed_tpu() {{
+  local cur=${{COMP_WORDS[COMP_CWORD]}}
+  COMPREPLY=( $(compgen -W "{cmds}" -- "$cur") )
+}}
+complete -F _weed_tpu weed-tpu""")
+        return 0
+
+    if opts.cmd == "update":
+        print("this build installs from source; update with "
+              "`git pull` in the repository checkout")
+        return 0
+
+    if opts.cmd in ("backup", "compact", "fix", "export"):
+        from . import tools
+
+        return {"backup": tools.run_backup, "compact": tools.run_compact,
+                "fix": tools.run_fix, "export": tools.run_export}[opts.cmd](
+                    opts)
+
+    if opts.cmd == "scaffold":
+        from .scaffold import print_scaffold
+
+        print_scaffold(opts.config)
         return 0
 
     raise SystemExit(f"unknown command {opts.cmd}")

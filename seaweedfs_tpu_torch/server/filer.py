@@ -27,8 +27,8 @@ The store is the one filer.toml enables (sqlite, leveldb, or a network
 store such as postgres2, mysql2, redis2/3, cassandra, etcd or tikv; see
 filerstore.available_stores), else `-store`. A network store whose server
 does not answer stops the filer at start; nothing falls back to sqlite.
-The HTML listing (`?ui`) is not part of the port and fails, naming its
-ROADMAP.md item.
+A directory GET with `?ui` or `Accept: text/html` answers the HTML
+listing (server/ui.py).
 """
 
 from __future__ import annotations
@@ -87,13 +87,6 @@ from ..wdclient.lease import FidLeasePool
 CHUNK_SIZE = 4 * 1024 * 1024  # maxMB default (command/filer.go)
 # fids leased from the master per Assign RPC
 FID_LEASE_BATCH = 128
-
-ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
-
-
-def _not_ported(what: str, item: str) -> str:
-    return f"{what} is not part of the PyTorch port yet: {item}"
-
 
 def is_remote_only(entry: Entry) -> bool:
     """Mounted from remote storage and never cached into volumes."""
@@ -1880,8 +1873,13 @@ def _make_http_handler(srv: FilerServer):
                     limit = int(q.get("limit", 1000))
                     if "ui" in q or "text/html" in (
                             self.headers.get("Accept") or ""):
-                        return self._json({"error": _not_ported(
-                            "the filer's HTML listing", ROADMAP_UI)}, 501)
+                        from .ui import filer_ui
+
+                        listed = list(srv.filer.list_entries(
+                            path, q.get("lastFileName", ""), limit=limit))
+                        return self._reply(
+                            200, filer_ui(srv, path, listed),
+                            "text/html; charset=utf-8")
                     entries = [{
                         "FullPath": e.full_path,
                         "Mtime": e.attr.mtime, "Crtime": e.attr.crtime,

@@ -12,12 +12,12 @@ master_server_handlers.go). Serves:
   /dir/lookup, /vol/vacuum, /col/delete, /cluster/status, /dir/status,
   /metrics (Prometheus text).
 
-The port's master runs alone. Its Raft group (`peers=`, `-peers`,
-master/raft.py) is not part of the port yet: asking for peers fails at
-construction, RaftAddServer/RaftRemoveServer answer UNIMPLEMENTED and
-RaftListClusterServers lists this one master as the leader, and /ui
-answers 501; each names the ROADMAP.md item that will port it. The master
-is the metadata ring's authority (GetMetaRing, JoinMetaRing). Volume
+A single master is the default; with `peers=` (`-peers`) the masters form
+a Raft group (master/raft.py) that replicates MaxVolumeId and elects the
+leader, and every mutating RPC is gated on leadership as the reference
+gates it on `Topo.IsLeader()`: a follower proxies lookups to the leader
+and refuses assigns. `/` and `/ui` serve the status page (server/ui.py).
+The master is the metadata ring's authority (GetMetaRing, JoinMetaRing). Volume
 placement draws from an explicit generator (`placement_seed=`) where the
 reference draws from the global `random` module.
 """
@@ -52,14 +52,6 @@ from ..utils.stats import (
     status_base,
 )
 
-# ROADMAP.md items that will port what this module refuses
-ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
-ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
-
-
-def _not_ported(what: str, item: str) -> str:
-    return f"{what} is not part of the PyTorch port yet: {item}"
-
 
 class MasterServer:
     def __init__(self, *, ip: str = "localhost", port: int = 9333,
@@ -71,13 +63,12 @@ class MasterServer:
                  allocate_fn=None,
                  placement_seed: int | None = None,
                  peers: list[str] | None = None,
+                 raft_dir: str | None = None,
+                 raft_transport=None,
                  metrics_address: str = "",
                  metrics_interval_sec: int = 15,
                  write_jwt_key: bytes = b"",
                  jwt_expires_sec: int = 10):
-        if peers:
-            raise NotImplementedError(_not_ported(
-                "a master Raft group (peers)", ROADMAP_RAFT))
         # JWT minting for authorized writes (security/jwt.go:30)
         self.write_jwt_key = write_jwt_key
         self.jwt_expires_sec = jwt_expires_sec
@@ -136,14 +127,32 @@ class MasterServer:
         self._vacuum_thread = None
         self._stop = threading.Event()
         self._started_at = time.time()
+        # multi-master: Raft-replicated MaxVolumeId + leader election
+        # (raft_server.go / cluster_commands.go)
+        self.raft = None
+        self._vid_propose_lock = locks.wlock("master.vid_propose", rank=40)
+        if peers:
+            from ..master.raft import RaftNode
+
+            self.raft = RaftNode(
+                self.address, peers, self._raft_apply,
+                transport=raft_transport, state_dir=raft_dir,
+                snapshot_fn=lambda: {
+                    "max_volume_id": self.topo.max_volume_id},
+                restore_fn=lambda s: self._raft_apply(
+                    {"op": "max_volume_id", "value": s["max_volume_id"]}),
+            )
+            self.topo.next_volume_id = self._raft_next_volume_id
 
     # -- leadership --------------------------------------------------------
 
     def is_leader(self) -> bool:
-        return True  # one master, leading itself
+        return self.raft is None or self.raft.role == "leader"
 
     def leader_address(self) -> str:
-        return self.address
+        if self.raft is None or self.raft.leader_id is None:
+            return self.address
+        return self.raft.leader_id
 
     def mint_write_jwt(self, fid: str) -> str:
         if not self.write_jwt_key:
@@ -155,6 +164,20 @@ class MasterServer:
     @property
     def address(self) -> str:
         return f"{self.ip}:{self.port}"
+
+    def _raft_apply(self, cmd: dict) -> None:
+        if cmd.get("op") == "max_volume_id":
+            with self.topo._lock:
+                self.topo.max_volume_id = max(self.topo.max_volume_id,
+                                              int(cmd["value"]))
+
+    def _raft_next_volume_id(self) -> int:
+        """Raft-committed replacement for Topology.next_volume_id
+        (MaxVolumeIdCommand, cluster_commands.go)."""
+        with self._vid_propose_lock:
+            candidate = self.topo.max_volume_id + 1
+            self.raft.propose({"op": "max_volume_id", "value": candidate})
+            return candidate
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -193,10 +216,14 @@ class MasterServer:
         if scrub_interval > 0:
             threading.Thread(target=self._scrub_loop,
                              args=(scrub_interval,), daemon=True).start()
+        if self.raft is not None:
+            self.raft.start()
         glog.info(f"master started on {self.address} (grpc :{self.grpc_port})")
 
     def stop(self) -> None:
         self._stop.set()
+        if self.raft is not None:
+            self.raft.stop()
         if self._http_server:
             self._http_server.shutdown()
         if self._grpc_server:
@@ -207,6 +234,9 @@ class MasterServer:
     def assign(self, *, count: int = 1, replication: str = "",
                collection: str = "", ttl: str = "", data_center: str = "",
                rack: str = "", data_node: str = "") -> dict:
+        if not self.is_leader():
+            return {"error": f"not the leader; ask {self.leader_address()}",
+                    "leader": self.leader_address()}
         rp = ReplicaPlacement.parse(replication or self.default_replication)
         t = TTL.parse(ttl) if ttl else EMPTY_TTL
         vl = self.topo.get_layout(collection, rp, t)
@@ -410,7 +440,7 @@ class MasterServer:
         self-healing pass. The per-server scrubber does its own pacing;
         this loop only spreads WHICH server sweeps WHEN."""
         while not self._stop.wait(interval):
-            if self.scrub_disabled:
+            if self.scrub_disabled or not self.is_leader():
                 continue
             # lint: allow-broad-except(a failed pass is logged; the
             # loop stays alive for the next tick)
@@ -563,7 +593,22 @@ class MasterGrpc:
                 data_center=n.data_center, rack=n.rack)
         return resp
 
+    def _leader_stub(self):
+        """Stub to the Raft leader, or None when we are it. Followers hold
+        no topology (volume servers heartbeat only to the leader), so
+        lookups are proxied (the reference redirects the same way)."""
+        ms = self.ms
+        if ms.is_leader() or ms.leader_address() == ms.address:
+            return None
+        return rpc.master_stub(rpc.grpc_address(ms.leader_address()))
+
     def LookupVolume(self, request, context):
+        leader = self._leader_stub()
+        if leader is not None:
+            try:
+                return leader.LookupVolume(request, timeout=10)
+            except grpc.RpcError:
+                pass  # fall through to (possibly stale) local view
         resp = master_pb2.LookupVolumeResponse()
         for vof in request.volume_or_file_ids:
             entry = resp.volume_id_locations.add(volume_or_file_id=vof)
@@ -627,6 +672,14 @@ class MasterGrpc:
         )
 
     def LookupEcVolume(self, request, context):
+        leader = self._leader_stub()
+        if leader is not None:
+            try:
+                return leader.LookupEcVolume(request, timeout=10)
+            except grpc.RpcError as e:
+                if e.code() == grpc.StatusCode.NOT_FOUND:
+                    context.abort(grpc.StatusCode.NOT_FOUND,
+                                  f"ec volume {request.volume_id} not found")
         shard_locs = self.ms.topo.lookup_ec_shards(request.volume_id)
         if not shard_locs:
             context.abort(grpc.StatusCode.NOT_FOUND,
@@ -671,6 +724,9 @@ class MasterGrpc:
         # master_grpc_server_volume.go:301 — flip the layout standing so
         # assignment stops (or resumes) handing out the volume
         ms = self.ms
+        if not ms.is_leader():
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          f"not the leader; leader is {ms.leader_address()}")
         url = f"{request.ip}:{request.port}" if request.ip else ""
         found = ms.topo.mark_volume_readonly(
             request.collection, request.volume_id, request.is_readonly,
@@ -681,21 +737,63 @@ class MasterGrpc:
         return master_pb2.VolumeMarkReadonlyResponse()
 
     def RaftListClusterServers(self, request, context):
-        # master_grpc_server_raft.go:13; the cluster is this one master,
-        # leading itself
+        # master_grpc_server_raft.go:13; in single-master mode the
+        # cluster is this one server, leading itself
         ms = self.ms
         resp = master_pb2.RaftListClusterServersResponse()
-        resp.cluster_servers.add(id=ms.address, address=ms.address,
-                                 suffrage="Voter", isLeader=True)
+        if ms.raft is None:
+            resp.cluster_servers.add(id=ms.address, address=ms.address,
+                                     suffrage="Voter", isLeader=True)
+            return resp
+        st = ms.raft.status()
+        for addr in sorted({st["id"], *st["peers"]}):
+            resp.cluster_servers.add(
+                id=addr, address=addr, suffrage="Voter",
+                isLeader=addr == st["leader"])
         return resp
 
     def RaftAddServer(self, request, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      _not_ported("RaftAddServer", ROADMAP_RAFT))
+        # master_grpc_server_raft.go:37
+        ms = self.ms
+        if ms.raft is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "raft not enabled (single-master mode)")
+        if not ms.is_leader():
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          f"not the leader; leader is {ms.leader_address()}")
+        # this raft identifies peers BY address (id == address); a
+        # distinct id would be registered under the address and then be
+        # unremovable by RaftRemoveServer(id=...)
+        if request.id and request.address and request.id != request.address:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          "server id must equal its address here "
+                          f"(got id={request.id!r} "
+                          f"address={request.address!r})")
+        try:
+            ms.raft.add_peer(request.address or request.id)
+        except Exception as e:  # noqa: BLE001 - surface the raft error
+            context.abort(grpc.StatusCode.INTERNAL, str(e))
+        return master_pb2.RaftAddServerResponse()
 
     def RaftRemoveServer(self, request, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      _not_ported("RaftRemoveServer", ROADMAP_RAFT))
+        # master_grpc_server_raft.go:64
+        ms = self.ms
+        if ms.raft is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "raft not enabled (single-master mode)")
+        if not ms.is_leader():
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          f"not the leader; leader is {ms.leader_address()}")
+        st = ms.raft.status()
+        if request.id not in {st["id"], *st["peers"]}:
+            # a silent no-op "success" would hide a typo'd id forever
+            context.abort(grpc.StatusCode.NOT_FOUND,
+                          f"{request.id} is not a member")
+        try:
+            ms.raft.remove_peer(request.id)
+        except Exception as e:  # noqa: BLE001
+            context.abort(grpc.StatusCode.INTERNAL, str(e))
+        return master_pb2.RaftRemoveServerResponse()
 
     def GetMasterConfiguration(self, request, context):
         return master_pb2.GetMasterConfigurationResponse(
@@ -799,8 +897,15 @@ def _make_http_handler(ms: MasterServer):
         def do_GET(self):  # noqa: C901 - flat route table
             self._trace_id = ""  # never leak across keep-alive requests
             if urlparse(self.path).path in ("/", "/ui"):
-                return self._json({"error": _not_ported("the /ui page",
-                                                        ROADMAP_UI)}, 501)
+                from .ui import master_ui
+
+                body = master_ui(ms)
+                self.send_response(200)
+                self.send_header("Content-Type", "text/html; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
             u = urlparse(self.path)
             q = {k: v[0] for k, v in parse_qs(u.query).items()}
             if u.path == "/dir/assign":
@@ -839,6 +944,18 @@ def _make_http_handler(ms: MasterServer):
                         out["auth"] = auth
                     return self._json(out)
             if u.path == "/dir/lookup":
+                if not ms.is_leader() and ms.leader_address() != ms.address:
+                    import requests as _rq
+
+                    from ..utils.http import requests_verify, url_for
+
+                    try:
+                        r = _rq.get(
+                            url_for(ms.leader_address(), self.path),
+                            timeout=10, verify=requests_verify())
+                        return self._json(r.json(), r.status_code)
+                    except _rq.RequestException:
+                        pass  # fall through to local (stale) view
                 vof = q.get("volumeId", q.get("fileId", ""))
                 try:
                     vid = int(str(vof).split(",")[0])
@@ -855,8 +972,10 @@ def _make_http_handler(ms: MasterServer):
                     ],
                 })
             if u.path == "/cluster/raft/status":
-                return self._json({"mode": "single-master",
-                                   "leader": ms.address})
+                if ms.raft is None:
+                    return self._json({"mode": "single-master",
+                                       "leader": ms.address})
+                return self._json(ms.raft.status())
             if u.path in ("/status", "/dir/status", "/cluster/status"):
                 total, used, files = ms.topo.statistics()
                 return self._json({
@@ -879,6 +998,10 @@ def _make_http_handler(ms: MasterServer):
             if u.path == "/debug/traces":
                 return self._json(trace.debug_traces_payload(q))
             if u.path == "/vol/grow":
+                if not ms.is_leader():
+                    return self._json(
+                        {"error": "not the leader",
+                         "leader": ms.leader_address()}, 400)
                 try:
                     rp = ReplicaPlacement.parse(
                         q.get("replication") or ms.default_replication)
@@ -911,8 +1034,15 @@ def _make_http_handler(ms: MasterServer):
         def do_POST(self):
             u = urlparse(self.path)
             if u.path == "/cluster/raft":
-                return self._json({"error": _not_ported(
-                    "the Raft transport", ROADMAP_RAFT)}, 501)
+                if ms.raft is None:
+                    return self._json({"error": "raft not enabled"}, 400)
+                n = int(self.headers.get("Content-Length") or 0)
+                req = json.loads(self.rfile.read(n) or b"{}")
+                handler = getattr(ms.raft, "handle_" + req.get("method", ""),
+                                  None)
+                if handler is None:
+                    return self._json({"error": "unknown raft method"}, 400)
+                return self._json(handler(req.get("payload", {})))
             return self.do_GET()
 
     return Handler

@@ -15,10 +15,10 @@ public port and serves needle GET/PUT/DELETE itself; everything else
 volumes' writes) is 307-redirected to the Python listener on the admin
 port (public + 11000, or an ephemeral one when that is taken).
 
-Every RPC of the service is registered. Those whose dependencies are not
-part of the port yet answer UNIMPLEMENTED (HTTP: 501) with a message that
-names the ROADMAP.md item that will port them: tiering, Query, /ui and
-image resizing. A server without a reachable master
+Every RPC of the service is registered and answers as the reference's
+does, tiering (`tier_backends=`, VolumeTierMoveDat*) and Query among
+them; `/` and `/ui` serve the status page (server/ui.py) and `?width=` /
+`?height=` resize images on read (images/). A server without a reachable master
 keeps serving: the heartbeat retries and EC shard lookups cache an empty
 answer, so the local shards encode, serve degraded reads, rebuild and
 scrub on their own.
@@ -26,6 +26,7 @@ scrub on their own.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -87,19 +88,6 @@ BUFFER_SIZE_LIMIT = 2 * 1024 * 1024  # streaming chunk (volume_grpc_copy.go:25)
 EC_LOCATION_TTL_S = 10.0
 EC_LOCATION_RETRY_S = 1.0
 
-# ROADMAP.md items that will port what this module answers UNIMPLEMENTED
-ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
-ROADMAP_QUERY = "ROADMAP.md A2d (query)"
-ROADMAP_UI = "ROADMAP.md A2d (server/ui.py)"
-ROADMAP_IMAGES = "ROADMAP.md A2d (images)"
-
-
-def _not_ported(what: str, item: str) -> str:
-    return f"{what} is not part of the PyTorch port yet: {item}"
-
-
-def _unimplemented(context, what: str, item: str):
-    context.abort(grpc.StatusCode.UNIMPLEMENTED, _not_ported(what, item))
 
 
 class _RateMeter:
@@ -171,8 +159,9 @@ class VolumeServer:
         else:
             self.admin_port = port
         if tier_backends:
-            raise NotImplementedError(
-                _not_ported("tiered storage", ROADMAP_TIER))
+            from ..storage.backend import load_tier_backends
+
+            load_tier_backends(tier_backends)
         self.ip = ip
         self.port = port
         self.grpc_port = rpc.derived_grpc_port(port)
@@ -194,6 +183,9 @@ class VolumeServer:
         self._hb_wake = threading.Event()
         self._native_lock = threading.Lock()
         self._native_vids: dict[int, bool] = {}
+        # volumes whose .dat is moving to a tier backend: the plane must
+        # not take them while the move holds the volume's lock
+        self._native_moving: set[int] = set()
         # vid -> {shard_id: [addresses]} with expiry (store_ec.go:238 cache)
         self._ec_loc_cache: dict[int, tuple[float, dict[int, list[str]]]] = {}
         self._loc_cache: dict[int, tuple[float, list[str]]] = {}
@@ -319,7 +311,8 @@ class VolumeServer:
                 current.update(loc.volumes)
             registered = self._native_vids
             for vid, v in current.items():
-                if v.is_tiered or v._dat is None or v._gc_frozen:
+                if (v.is_tiered or v._dat is None or v._gc_frozen
+                        or vid in self._native_moving):
                     # frozen: un-flushable buffered bytes — handing the
                     # plane write authority (attach flushes) would raise
                     continue
@@ -355,6 +348,27 @@ class VolumeServer:
                 v = current.get(vid)
                 if v is not None:
                     v.sync_native()
+
+    @contextlib.contextmanager
+    def _native_released(self, vid: int):
+        """Keep one volume out of the C++ plane's registry while its
+        `.dat` moves to a tier backend. The plane holds the `.dat` open,
+        and the move holds the volume's lock for the whole upload, which
+        a registry sync that took the volume back would wait on. Once
+        the `.dat` is remote, `_sync_native_registry` skips the volume
+        because it is tiered; after a download it takes it back."""
+        with self._native_lock:
+            self._native_moving.add(vid)
+            if self._native_vids.pop(vid, None) is not None:
+                self.native_plane.remove_volume(vid)
+                v = self.store.find_volume(vid)
+                if v is not None:
+                    v.detach_native()
+        try:
+            yield
+        finally:
+            with self._native_lock:
+                self._native_moving.discard(vid)
 
     def _check_with_master(self) -> None:
         """checkWithMaster (volume_grpc_client_to_master.go:28-47): pull
@@ -1961,12 +1975,37 @@ class VolumeGrpc:
     # -- tiered storage (volume_grpc_tier_upload/download.go) --------------
 
     def VolumeTierMoveDatToRemote(self, request, context):
-        _unimplemented(context, "VolumeTierMoveDatToRemote", ROADMAP_TIER)
-        yield from ()
+        from ..storage.backend import get_tier_backend
+
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        try:
+            backend = get_tier_backend(request.destination_backend_name)
+        except KeyError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        # the C++ plane lets go of the volume before its .dat leaves the
+        # disk; Python serves it from the backend after
+        with self.srv._native_released(request.volume_id):
+            moved = v.tier_to_remote(
+                backend, keep_local=request.keep_local_dat_file)
+        yield vs.VolumeTierMoveDatToRemoteResponse(
+            processed=moved, processed_percentage=100.0)
 
     def VolumeTierMoveDatFromRemote(self, request, context):
-        _unimplemented(context, "VolumeTierMoveDatFromRemote", ROADMAP_TIER)
-        yield from ()
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        try:
+            moved = v.tier_from_remote(
+                keep_remote=request.keep_remote_dat_file)
+        except IOError as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        self.srv._sync_native_registry()  # the plane takes it back
+        yield vs.VolumeTierMoveDatFromRemoteResponse(
+            processed=moved, processed_percentage=100.0)
 
     def VolumeServerStatus(self, request, context):
         resp = vs.VolumeServerStatusResponse(
@@ -2153,8 +2192,32 @@ class VolumeGrpc:
     # ---- select on the volume server (volume_grpc_query.go) --------------
 
     def Query(self, request, context):
-        _unimplemented(context, "Query", ROADMAP_QUERY)
-        yield from ()
+        """Scan the named needles as JSON/CSV records, apply the single
+        filter, project `selections`, stream serialized stripes."""
+        from ..query import execute_query
+
+        for fid in request.from_file_ids:
+            try:
+                f = parse_file_id(fid)
+            except ValueError:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              f"bad file id {fid}")
+            try:
+                n = self.srv.read_needle(f.volume_id, f.key, f.cookie)
+            except (NotFoundError, KeyError, CookieMismatch, DeletedError):
+                continue  # skip unreadable fids like not-found (query semantics)
+            data = n.data
+            if n.is_compressed:
+                from ..utils.compression import maybe_decompress
+
+                data = maybe_decompress(data)
+            try:
+                out = execute_query(data, request)
+            except Exception as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              f"query {fid}: {e}")
+            if out:
+                yield vs.QueriedStripe(records=out)
 
     # ---- helpers
 
@@ -2358,8 +2421,10 @@ def _make_http_handler(srv: VolumeServer):
             if u.path == "/healthz":
                 return self._json({"ok": True})
             if u.path in ("/", "/ui"):
-                return self._json({"error": _not_ported("the /ui page",
-                                                        ROADMAP_UI)}, 501)
+                from .ui import volume_ui
+
+                return self._reply(200, volume_ui(srv),
+                                   "text/html; charset=utf-8")
             srv._fg_rate.note()  # scrub pacing backs off on this rate
             with trace.span("volume.read", carrier=self.headers,
                             component="volume", server=srv.address,
@@ -2426,8 +2491,11 @@ def _make_http_handler(srv: VolumeServer):
             q = {k: v[0] for k, v in parse_qs(u.query).items()}
             if ("width" in q or "height" in q) and (
                     stored_mime.startswith("image/") or not stored_mime):
-                return self._json({"error": _not_ported(
-                    "on-read image resizing", ROADMAP_IMAGES)}, 501)
+                from ..images import resized
+
+                data, _, _ = resized(
+                    data, int(q.get("width", 0)), int(q.get("height", 0)),
+                    q.get("mode", ""))
             if rng and rng.startswith("bytes="):
                 # shared RFC 7233 span parsing (utils.http): suffix
                 # ranges serve the LAST N bytes, unsatisfiable/inverted

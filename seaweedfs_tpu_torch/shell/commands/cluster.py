@@ -1,11 +1,5 @@
 """cluster.* commands (counterpart of seaweedfs_tpu/shell/commands/cluster.py;
-SeaweedFS weed/shell/command_cluster_*.go).
-
-The master's Raft group is not part of the port yet (ROADMAP.md A2d): a
-port master always runs alone. `cluster.raft.ps` and `cluster.raft.leader`
-show that one master and name the item; `cluster.raft.add` and
-`cluster.raft.remove` fail, naming it.
-"""
+SeaweedFS weed/shell/command_cluster_*.go)."""
 
 from __future__ import annotations
 
@@ -13,8 +7,6 @@ import time
 
 from ...pb import master_pb2, volume_server_pb2 as vs
 from ..registry import command
-
-ROADMAP_RAFT = "ROADMAP.md A2d (master Raft: -peers)"
 
 
 @command("cluster.ps", "list cluster processes (masters, volume servers, filers, brokers)")
@@ -79,8 +71,6 @@ def cluster_raft_ps(env, args, out):
     for s in _raft_servers(env):
         star = " *leader*" if s.isLeader else ""
         print(f"  {s.id} {s.suffrage}{star}", file=out)
-    print(f"single master: Raft is not part of the PyTorch port yet: "
-          f"{ROADMAP_RAFT}", file=out)
 
 
 @command("cluster.raft.leader", "print the current Raft leader")
@@ -92,20 +82,43 @@ def cluster_raft_leader(env, args, out):
     print(env.master, file=out)
 
 
-def _raft_member_op(op: str) -> None:
-    raise NotImplementedError(
-        f"cluster.raft.{op}: Raft is not part of the PyTorch port yet: "
-        f"{ROADMAP_RAFT}")
+def _raft_leader_addr(env) -> str:
+    for s in _raft_servers(env):
+        if s.isLeader:
+            return s.address
+    return env.master
+
+
+def _raft_member_op(env, args, out, op: str) -> None:
+    from ...pb import rpc
+    from ..registry import kv_flags
+
+    env.confirm_is_locked()  # membership changes mutate cluster topology
+    opts = kv_flags(args)
+    if not opts.get("id"):
+        raise RuntimeError(f"usage: cluster.raft.{op} -id=<master-address>")
+    # membership ops must land on the leader (followers reject them)
+    stub = rpc.master_stub(rpc.grpc_address(_raft_leader_addr(env)))
+    if op == "add":
+        stub.RaftAddServer(master_pb2.RaftAddServerRequest(
+            id=opts["id"], address=opts["id"], voter=True), timeout=10)
+    else:
+        stub.RaftRemoveServer(master_pb2.RaftRemoveServerRequest(
+            id=opts["id"]), timeout=10)
+    verb = "added" if op == "add" else "removed"
+    members = sorted(s.id for s in _raft_servers(env))
+    print(f"{verb} {opts['id']}; members: {members}", file=out)
 
 
 @command("cluster.raft.add", "cluster.raft.add -id=<master-address>")
 def cluster_raft_add(env, args, out):
-    """command_cluster_raft_add.go: add a voter to the master Raft group."""
-    _raft_member_op("add")
+    """command_cluster_raft_add.go: add a voter to the master Raft group
+    (the new master should be started with matching -peers)."""
+    _raft_member_op(env, args, out, "add")
 
 
 @command("cluster.raft.remove", "cluster.raft.remove -id=<master-address>")
 def cluster_raft_remove(env, args, out):
     """command_cluster_raft_remove.go: remove a server from the master
     Raft group."""
-    _raft_member_op("remove")
+    _raft_member_op(env, args, out, "remove")

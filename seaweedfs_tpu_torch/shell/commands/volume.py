@@ -2,10 +2,10 @@
 seaweedfs_tpu/shell/commands/volume.py; SeaweedFS
 weed/shell/command_volume_*.go).
 
-`volume.tier.upload`, `volume.tier.download` and `volume.tier.move`
-(tiered storage) are registered but not part of the port yet: each
-fails, naming its ROADMAP.md item. `volume.fsck` walks the filer given
-with `shell -filer`.
+`volume.tier.upload` and `volume.tier.download` move a sealed volume's
+`.dat` to a tier backend of its server (`-tierConfig`) and back;
+`volume.tier.move` moves volumes between disk types. `volume.fsck` walks
+the filer given with `shell -filer`.
 """
 
 from __future__ import annotations
@@ -15,13 +15,6 @@ from collections import defaultdict
 
 from ...pb import master_pb2, volume_server_pb2 as vs
 from ..registry import command
-
-ROADMAP_TIER = "ROADMAP.md A2c (tiered storage)"
-
-
-def _not_ported(name: str, item: str):
-    raise NotImplementedError(
-        f"{name} is not part of the PyTorch port yet: {item}")
 
 
 @command("volume.list", "print the cluster volume topology")
@@ -442,14 +435,41 @@ def volume_server_leave(env, args, out):
 
 @command("volume.tier.upload", "move a sealed volume's .dat to a tier backend")
 def volume_tier_upload(env, args, out):
-    """command_volume_tier_upload.go."""
-    _not_ported("volume.tier.upload", ROADMAP_TIER)
+    """command_volume_tier_upload.go: .dat -> remote backend, reads
+    range-fetch afterward."""
+    p = argparse.ArgumentParser(prog="volume.tier.upload")
+    p.add_argument("-node", required=True)
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-dest", required=True, help="tier backend name")
+    p.add_argument("-keepLocalDatFile", action="store_true")
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+    stub = env.volume_stub(opts.node)
+    for resp in stub.VolumeTierMoveDatToRemote(
+            vs.VolumeTierMoveDatToRemoteRequest(
+                volume_id=opts.volumeId,
+                destination_backend_name=opts.dest,
+                keep_local_dat_file=opts.keepLocalDatFile), timeout=3600):
+        print(f"moved {resp.processed} bytes "
+              f"({resp.processed_percentage:.0f}%)", file=out)
 
 
 @command("volume.tier.download", "bring a tiered volume's .dat back to disk")
 def volume_tier_download(env, args, out):
     """command_volume_tier_download.go."""
-    _not_ported("volume.tier.download", ROADMAP_TIER)
+    p = argparse.ArgumentParser(prog="volume.tier.download")
+    p.add_argument("-node", required=True)
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-keepRemoteDatFile", action="store_true")
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+    stub = env.volume_stub(opts.node)
+    for resp in stub.VolumeTierMoveDatFromRemote(
+            vs.VolumeTierMoveDatFromRemoteRequest(
+                volume_id=opts.volumeId,
+                keep_remote_dat_file=opts.keepRemoteDatFile), timeout=3600):
+        print(f"downloaded {resp.processed} bytes "
+              f"({resp.processed_percentage:.0f}%)", file=out)
 
 
 @command("volume.mount", "volume.mount -node=<server> -volumeId=<n>")
@@ -619,8 +639,68 @@ def volume_delete_empty(env, args, out):
          "volume.tier.move -fromDiskType=hdd -toDiskType=ssd "
          "[-collection=x] [-apply]")
 def volume_tier_move(env, args, out):
-    """command_volume_tier_move.go."""
-    _not_ported("volume.tier.move", ROADMAP_TIER)
+    """command_volume_tier_move.go: migrate volumes onto servers that have
+    the target disk type (copy there, delete at the source)."""
+    p = argparse.ArgumentParser(prog="volume.tier.move")
+    p.add_argument("-fromDiskType", default="")
+    p.add_argument("-toDiskType", required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-apply", action="store_true")
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+
+    def norm(dt: str) -> str:
+        return "" if dt in ("", "hdd") else dt
+
+    # destination servers offering the target disk type, with room
+    dests = []
+    sources = []  # (vid, server)
+    replicas = _replica_index(env)
+    for dn in env.collect_data_nodes():
+        for dtype, disk in dn.disk_infos.items():
+            if norm(dtype) == norm(opts.toDiskType):
+                free = disk.max_volume_count - disk.volume_count
+                if free > 0:
+                    dests.append([dn.id, free])
+            if norm(dtype) == norm(opts.fromDiskType):
+                for v in disk.volume_infos:
+                    if opts.collection and v.collection != opts.collection:
+                        continue
+                    sources.append((v.id, dn.id))
+    if not dests:
+        print(f"no server offers disk type {opts.toDiskType!r} with room",
+              file=out)
+        return
+    moved = 0
+    for vid, src in sources:
+        # a destination must not already hold this volume (ALREADY_EXISTS)
+        holders = set(replicas.get(vid, {}))
+        dest = next((d for d in dests
+                     if d[0] != src and d[1] > 0 and d[0] not in holders),
+                    None)
+        if dest is None:
+            print(f"volume {vid}: no destination with room", file=out)
+            continue
+        print(f"volume {vid}: {src} -> {dest[0]} ({opts.toDiskType})",
+              file=out)
+        if opts.apply:
+            try:
+                for _ in env.volume_stub(dest[0]).VolumeCopy(
+                        vs.VolumeCopyRequest(volume_id=vid,
+                                             source_data_node=src,
+                                             disk_type=opts.toDiskType),
+                        timeout=24 * 3600):
+                    pass
+                env.volume_stub(src).VolumeDelete(
+                    vs.VolumeDeleteRequest(volume_id=vid), timeout=60)
+            except Exception as e:  # keep moving the rest
+                print(f"  volume {vid} move failed: {e}", file=out)
+                continue
+        moved += 1
+        dest[1] -= 1
+        replicas.setdefault(vid, {})[dest[0]] = None
+    if not moved:
+        print("nothing to move", file=out)
 
 
 @command("volume.scrub.disable", "pause the master's fleet scrub loop")

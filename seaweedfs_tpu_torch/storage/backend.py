@@ -1,15 +1,18 @@
-"""Volume file backends and the local tier target.
+"""Volume file backends and the cloud-tier targets.
 
 Counterpart of seaweedfs_tpu/storage/backend.py (SeaweedFS
 weed/storage/backend/): BackendStorageFile (backend.go) abstracts where
 `.dat` bytes live: a local disk file (disk_file.go), an mmap'd file
-(memory_map/), or a remote tier object. A `.tier` JSON sidecar next to the
-`.idx` records where a tiered `.dat` went (the reference stores the same
-in the volume's `.vif` VolumeInfo).
+(memory_map/), or a remote tier object (s3_backend/, rclone_backend/). A
+sealed volume's `.dat` can be moved to a tier backend
+(`volume.tier.move`); reads then range-fetch from the remote while `.idx`
+stays local, as SeaweedFS's VolumeTierMoveDatToRemote flow does.
 
-Tier backends here: `local` (directory-backed). The reference's `s3`
-backend (HTTP + SigV4) and the backend config loader are not part of the
-port yet.
+Tier backends here: `local` (directory-backed, always available) and `s3`
+(any S3 HTTP endpoint, the port's own gateway among them), loaded from a
+master.toml-shaped config by `load_tier_backends`. A `.tier` JSON sidecar
+next to the `.idx` records where the `.dat` went (SeaweedFS stores the
+same in the volume's `.vif` VolumeInfo).
 """
 
 from __future__ import annotations
@@ -240,6 +243,76 @@ class LocalTierBackend(TierBackend):
             pass
 
 
+class S3TierBackend(TierBackend):
+    """S3-endpoint tier (s3_backend/s3_backend.go) via HTTP + SigV4."""
+
+    def __init__(self, endpoint: str, bucket: str, *, name: str = "s3",
+                 access_key: str = "", secret_key: str = "",
+                 region: str = "us-east-1"):
+        self.endpoint = endpoint.rstrip("/")
+        self.bucket = bucket
+        self.name = name
+        self.access_key = access_key
+        self.secret_key = secret_key
+        self.region = region
+
+    def _url(self, key: str) -> str:
+        import urllib.parse
+
+        return (f"{self.endpoint}/{self.bucket}/"
+                f"{urllib.parse.quote(key, safe='/')}")
+
+    def _headers(self, method: str, url: str, payload: bytes,
+                 extra: dict | None = None) -> dict:
+        h = dict(extra or {})
+        if self.access_key:
+            from ..s3api.sigv4_client import sign_request
+
+            h.update(sign_request(method, url, payload, self.access_key,
+                                  self.secret_key, self.region))
+        return h
+
+    def upload(self, key, local_path):
+        import requests
+
+        with open(local_path, "rb") as f:
+            data = f.read()
+        url = self._url(key)
+        r = requests.put(url, data=data,
+                         headers=self._headers("PUT", url, data),
+                         timeout=600)
+        r.raise_for_status()
+        return len(data)
+
+    def download(self, key, local_path):
+        import requests
+
+        url = self._url(key)
+        r = requests.get(url, headers=self._headers("GET", url, b""),
+                         timeout=600)
+        r.raise_for_status()
+        with open(local_path, "wb") as f:
+            f.write(r.content)
+        return len(r.content)
+
+    def read_range(self, key, offset, length):
+        import requests
+
+        url = self._url(key)
+        r = requests.get(url, timeout=60, headers=self._headers(
+            "GET", url, b"",
+            {"Range": f"bytes={offset}-{offset + length - 1}"}))
+        r.raise_for_status()
+        return r.content
+
+    def delete(self, key):
+        import requests
+
+        url = self._url(key)
+        requests.delete(url, headers=self._headers("DELETE", url, b""),
+                        timeout=60)
+
+
 class RemoteDatFile(BackendStorageFile):
     """A tiered volume's `.dat`: ranged reads against a TierBackend."""
 
@@ -274,6 +347,26 @@ def get_tier_backend(name: str) -> TierBackend:
         raise KeyError(
             f"unknown tier backend {name!r} (configured: {sorted(_BACKENDS)})")
     return b
+
+
+def load_tier_backends(config: dict) -> None:
+    """Config shape mirrors master.toml's [storage.backend] section:
+    {"s3": {"default": {"endpoint": ..., "bucket": ...}},
+     "local": {"default": {"root": ...}}}"""
+    for kind, instances in config.items():
+        for name, conf in instances.items():
+            full = kind if name == "default" else f"{kind}.{name}"
+            if kind == "local":
+                register_tier_backend(
+                    LocalTierBackend(conf["root"], name=full))
+            elif kind == "s3":
+                register_tier_backend(S3TierBackend(
+                    conf["endpoint"], conf["bucket"], name=full,
+                    access_key=conf.get("access_key", ""),
+                    secret_key=conf.get("secret_key", ""),
+                    region=conf.get("region", "us-east-1")))
+            else:
+                raise KeyError(f"unknown tier backend kind {kind!r}")
 
 
 def tier_sidecar_path(volume_base: str) -> str:

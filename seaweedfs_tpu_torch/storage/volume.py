@@ -7,8 +7,8 @@ needle_map_memory.go): the write, read and delete path, group commit, the
 startup integrity repair, the needle scan and vacuum (compact /
 commit_compact), and the funnel through which a volume attached to the
 native C++ data plane (native/dataplane.py) hands that plane write
-authority. Moving a `.dat` to a tier backend and back is not part of the
-port yet; a volume already tiered by the reference still opens read-only.
+authority, and the move of a sealed `.dat` to a tier backend and back
+(`tier_to_remote`, `tier_from_remote`; volume_tier.go).
 
 One volume = superblock + appended needle records in
 `.dat`, with a 16-byte-per-entry `.idx` log replayed into an in-memory map
@@ -1145,6 +1145,66 @@ class Volume:
             if self._dat is not None:
                 self._dat.close()
             self.nm.close()
+
+    # -- tiering (volume_tier.go + VolumeTierMoveDat* RPC backends) --------
+
+    def tier_key(self) -> str:
+        prefix = f"{self.collection}_" if self.collection else ""
+        return f"{prefix}{self.id}.dat"
+
+    def tier_to_remote(self, backend, keep_local: bool = False,
+                       progress_fn=None) -> int:
+        """Upload the sealed .dat to a tier backend; reads then range-fetch
+        remotely. -> bytes moved."""
+        from .backend import RemoteDatFile, write_tier_sidecar
+
+        with self._lock:
+            if self._dat is None:
+                raise IOError(f"volume {self.id} is already tiered")
+            was_read_only = self.read_only
+            self.read_only = True
+            try:
+                self._dat.flush()
+                base = self.file_name()
+                size = self.data_size()
+                moved = backend.upload(self.tier_key(), base + ".dat")
+            except BaseException:
+                self.read_only = was_read_only  # failed upload: stay local
+                raise
+            if progress_fn:
+                progress_fn(moved)
+            write_tier_sidecar(base, backend.name, self.tier_key(), size)
+            self._dat.close()
+            self._dat = None
+            self._dat_tail = None
+            self.remote_dat = RemoteDatFile(backend, self.tier_key(), size)
+            if not keep_local:
+                os.remove(base + ".dat")
+            return moved
+
+    def tier_from_remote(self, keep_remote: bool = False,
+                         progress_fn=None) -> int:
+        """Bring a tiered .dat back to local disk. -> bytes moved."""
+        from .backend import tier_sidecar_path
+
+        with self._lock:
+            if self.remote_dat is None:
+                raise IOError(f"volume {self.id} is not tiered")
+            base = self.file_name()
+            moved = self.remote_dat.backend.download(
+                self.remote_dat.key, base + ".dat")
+            if progress_fn:
+                progress_fn(moved)
+            if not keep_remote:
+                self.remote_dat.backend.delete(self.remote_dat.key)
+            os.remove(tier_sidecar_path(base))
+            from .backend import DiskFile
+
+            self.remote_dat = None
+            self._dat = DiskFile(base + ".dat")
+            self._dat_tail = None
+            self.read_only = False
+            return moved
 
     def destroy(self) -> None:
         """Remove every file of this volume (Destroy, volume_write.go:55-85).

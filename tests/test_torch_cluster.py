@@ -70,6 +70,7 @@ from seaweedfs_tpu_torch.storage.ec_locate import Geometry
 from seaweedfs_tpu_torch.utils import locks
 from seaweedfs_tpu_torch.wdclient import MasterClient
 from seaweedfs_tpu_torch.wdclient import pool
+from tests import torch_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LARGE, SMALL = 10000, 100
@@ -120,7 +121,7 @@ def _free_port_pair(taken=()) -> int:
     """A free HTTP port and its gRPC twin (+10000), below the kernel's
     ephemeral range: every run serves on the same addresses."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 22000)
+        port = torch_ports.draw(_PORTS, 12000, 22000)
         if port in taken:
             continue
         try:
@@ -721,7 +722,8 @@ def test_server_command_runs_master_and_volume_in_one_process(tmp_path):
                 break
             assert time.time() < deadline, out.decode()
             time.sleep(0.3)
-        assert "ROADMAP.md" in out.decode()  # cluster.raft.ps: one master
+        # cluster.raft.ps as the reference prints it for one master
+        assert f"  127.0.0.1:{mport} Voter *leader*\n" in out.decode()
     finally:
         rcs = p.stop_all()
         rpc.reset_channels()
@@ -732,10 +734,23 @@ def test_server_command_runs_master_and_volume_in_one_process(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["master", "-peers", "127.0.0.1:1,127.0.0.1:2"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
-def test_options_not_ported_refuse_at_start(argv, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        command.main(argv)
-    assert "ROADMAP.md" in str(e.value.code)
+def test_the_master_takes_the_references_raft_flags(argv, tmp_path):
+    """`master -peers -mdir` parse as the reference's do (the group
+    itself runs in tests/test_torch_raft.py)."""
+    import contextlib
+    import re
+
+    from seaweedfs_tpu import command as ref_command
+
+    def flags(mod):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as e:
+            mod.main([argv[0], "-h"])
+        assert e.value.code == 0
+        return sorted(set(re.findall(r"(?m)^\s+(-[\w.]+)", out.getvalue())))
+
+    assert flags(command) == flags(ref_command)
+    assert {"-peers", "-mdir"} <= set(flags(command))
 
 
 @pytest.mark.parametrize("argv", [

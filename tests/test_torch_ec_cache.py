@@ -38,6 +38,7 @@ from seaweedfs_tpu_torch.shell.env import CommandEnv
 from seaweedfs_tpu_torch.shell.registry import run_command
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry
 from seaweedfs_tpu_torch.wdclient import pool
+from tests import torch_ports
 
 GEO = dict(large_block=10000, small_block=100)
 N_NEEDLES = 30
@@ -50,7 +51,7 @@ def _free_port_pair(taken=()) -> int:
     """A free HTTP port and its gRPC twin (+10000), below the kernel's
     ephemeral range."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if port in taken:
             continue
         try:

@@ -57,6 +57,7 @@ from seaweedfs_tpu_torch.storage.ec_locate import Geometry
 from seaweedfs_tpu_torch.storage.file_id import parse_file_id
 from seaweedfs_tpu_torch.utils import failpoint, numa, stats
 from seaweedfs_tpu_torch.wdclient import pool
+from tests import torch_ports
 
 # small blocks so a few KB of needles cross the large/small row boundary
 TEST_GEO = Geometry(large_block=10000, small_block=100)
@@ -71,7 +72,7 @@ def _free_port() -> int:
     ephemeral range, so no client's outgoing port takes it between the
     pick and the bind; never the same pick twice in this module."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 22000)
+        port = torch_ports.draw(_PORTS, 12000, 22000)
         if port in _TAKEN:
             continue
         try:

@@ -95,6 +95,7 @@ from seaweedfs_tpu_torch.storage.ec_locate import Geometry
 from seaweedfs_tpu_torch.utils import trace
 from seaweedfs_tpu_torch.wdclient import pool
 from tests import test_torch_stores as store_fakes
+from tests import torch_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # EC blocks of the test geometry: a volume of a few MiB is all small
@@ -120,7 +121,7 @@ def _free_port_pair(taken=()) -> int:
     below the kernel's ephemeral range, so no other test's port-0 bind can
     take one between this pick and the server's bind."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if port in taken or {port, port + 10000, port + 11000} & _RESERVED:
             continue
         try:
@@ -1268,18 +1269,40 @@ def test_the_cli_benchmarks_run_the_compiled_client(argv, hot_stack,
 @pytest.mark.parametrize("argv", [
     ["-v", "1", "backup"], ["master.follower"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
-def test_cli_commands_not_ported_refuse_at_start(argv, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        command.main(argv)
-    assert "ROADMAP.md" in str(e.value.code)
+def test_cli_commands_parse_as_the_references(argv, tmp_path, capsys):
+    """`backup` and `master.follower` without their required flags stop
+    with the reference's usage error (the commands themselves run in
+    tests/test_torch_tools.py and tests/test_torch_raft.py)."""
+    from seaweedfs_tpu import command as ref_command
+
+    got = []
+    for mod in (ref_command, command):
+        with pytest.raises(SystemExit) as e:
+            mod.main(argv)
+        # the usage lines wrap at the program's name, which differs
+        got.append((e.value.code, capsys.readouterr().err.replace(
+            "weed-tpu-torch", "weed-tpu").splitlines()[-1]))
+    assert got[1] == got[0] and got[0][0] == 2
 
 
 @pytest.mark.parametrize("line", [
     "volume.tier.upload -volumeId=1",
     "volume.tier.download -volumeId=1", "volume.tier.move",
     "cluster.raft.add -id=127.0.0.1:2", "cluster.raft.remove -id=127.0.0.1:2"])
-def test_shell_commands_not_ported_name_their_item(line):
-    out = io.StringIO()
-    env = CommandEnv("127.0.0.1:1", filer="127.0.0.1:1")
-    assert run_command(env, line, out) == 1
-    assert "ROADMAP.md" in out.getvalue()
+def test_shell_commands_fail_as_the_references(line, capsys):
+    """Without their required flags, or without a master to ask, the
+    tier and Raft commands fail with the reference's message: argparse's
+    usage error, or the master's gRPC error."""
+    got = []
+    for env_cls, run in ((RefEnv, ref_run_command), (CommandEnv, run_command)):
+        out = io.StringIO()
+        env = env_cls("127.0.0.1:1", filer="127.0.0.1:1")
+        env._lock_token = 1  # as after `lock`
+        try:
+            rc = run(env, line, out)
+        except SystemExit as e:
+            rc = ("exit", e.code)
+        got.append((rc, re.sub(r"\tdebug_error_string = .*\n", "",
+                               out.getvalue()), capsys.readouterr().err))
+    assert got[1] == got[0] and got[0][0] in (1, ("exit", 2))
+    assert "ROADMAP.md" not in got[1][1] + got[1][2]

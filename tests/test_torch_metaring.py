@@ -37,6 +37,7 @@ from seaweedfs_tpu_torch.pb import rpc
 from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.wdclient import MasterClient, MetaRingClient
+from tests import torch_ports
 
 N_PATHS = 10_000
 _PORTS = random.Random(os.getpid() + 29)
@@ -47,7 +48,7 @@ def _free_port_pair(taken=()) -> int:
     """A free HTTP port and its gRPC twin (+10000), below the kernel's
     ephemeral range, never a reference default or its twins."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if port in taken or {port, port + 10000, port + 11000} & _RESERVED:
             continue
         try:

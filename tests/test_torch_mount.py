@@ -70,6 +70,7 @@ from seaweedfs_tpu_torch.shell.env import CommandEnv
 from seaweedfs_tpu_torch.shell.registry import run_command
 from seaweedfs_tpu_torch.utils import chunk_cache
 from seaweedfs_tpu_torch.wdclient import pool
+from tests import torch_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 32 * 1024  # the mounts' chunk size (the reference's tests' value)
@@ -84,7 +85,7 @@ def _free_port_pair(taken=()) -> int:
     """A free HTTP port whose +10000 and +11000 twins are free too, all
     below the kernel's ephemeral range."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if port in taken or {port, port + 10000, port + 11000} & _RESERVED:
             continue
         try:

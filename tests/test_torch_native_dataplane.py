@@ -61,6 +61,7 @@ from seaweedfs_tpu_torch.storage.needle import (
     FLAG_HAS_NAME,
     LAST_MODIFIED_BYTES,
 )
+from tests import torch_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIN_S = 1_700_000_000  # the plane's pinned wall clock, in seconds
@@ -72,7 +73,7 @@ def pick_port(taken=()) -> int:
     """A free HTTP port whose gRPC twin (+10000) and plane admin listener
     (+11000) are free as well, all below the kernel's ephemeral range."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if any(abs(port - t) in (0, 1000, 10000, 11000) for t in taken):
             continue
         try:

@@ -53,6 +53,7 @@ from seaweedfs_tpu_torch.shell.registry import run_command
 
 from .fake_cloud import FakePubSub, FakeSqs
 from .fake_kafka import FakeKafkaBroker
+from tests import torch_ports
 
 PKGS = {
     "ref": dict(notification=ref_notification, kafka_wire=ref_kafka_wire,
@@ -72,7 +73,7 @@ def _free_port_pair() -> int:
     """A free HTTP port whose +10000 twin is free too, below the kernel's
     ephemeral range."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if {port, port + 10000, port + 11000} & _RESERVED:
             continue
         try:

@@ -69,6 +69,7 @@ from seaweedfs_tpu_torch.shell.registry import run_command
 from seaweedfs_tpu_torch.wdclient import pool
 
 from .fake_cloud import FakeAzure, FakeB2, FakeGcs
+from tests import torch_ports
 
 PKG = {
     "ref": dict(Master=RefMaster, Volume=RefVolume, Filer=RefFiler,
@@ -95,7 +96,7 @@ def _free_port_pair(taken=()) -> int:
     """A free HTTP port whose +10000 and +11000 twins are free too, all
     below the kernel's ephemeral range."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if port in taken or {port, port + 10000, port + 11000} & _RESERVED:
             continue
         try:

@@ -15,7 +15,8 @@ must be byte-identical and responses equal (tolerance 0: GF arithmetic is
 exact). Each package's server also opens the other's directories. A
 write and a delete to a volume with replication 001 reach the peer, and
 vacuum (VacuumVolumeCheck, Compact, Commit, Cleanup) compacts alike, with
-the same bytes in both packages. The deferred RPCs answer UNIMPLEMENTED;
+the same bytes in both packages. The tier RPCs, Query, the status page
+and the on-read resize answer as the reference's do;
 `python -m seaweedfs_tpu_torch volume -coder cpu` serves as a process
 without JAX; both packages' protobuf files live in one process."""
 
@@ -55,6 +56,7 @@ from seaweedfs_tpu_torch.storage import needle, recovery
 from seaweedfs_tpu_torch.storage.ec_locate import Geometry
 from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
 from seaweedfs_tpu_torch.utils import locks
+from tests import torch_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LARGE, SMALL = 10000, 100
@@ -94,7 +96,7 @@ def _free_port_pair() -> int:
     kernel's ephemeral range: the servers here stop and start again on one
     address, and no client socket may take the port in between."""
     for _ in range(200):
-        port = _PORTS.randrange(12000, 22000)
+        port = torch_ports.draw(_PORTS, 12000, 22000)
         try:
             for p in (port, port + 10000):
                 with socket.socket() as s:
@@ -440,53 +442,79 @@ def test_each_server_opens_the_others_directory(code, direction,
         assert got == want, state
 
 
-# -- what the port defers -----------------------------------------------------
+# -- the tier and Query RPCs, the status page and the resize ------------------
 
-DEFERRED_RPCS = ("VolumeTierMoveDatToRemote",
+ANSWERED_RPCS = ("VolumeTierMoveDatToRemote",
                  "VolumeTierMoveDatFromRemote", "Query")
 
 
-@pytest.fixture(scope="module")
-def lone_server(tmp_path_factory):
-    """A masterless port server on its own address, with one needle."""
+def _lone(mods, d: str, coder):
+    """A masterless server of one package on its own address, with one
+    needle."""
     port = _free_port_pair()
-    d = str(tmp_path_factory.mktemp("lone"))
-    srv = port_volume.VolumeServer(
+    srv = mods["volume"].VolumeServer(
         directories=[d], master=f"localhost:{NOBODY}", ip="127.0.0.1",
-        port=port, coder=RSCodecTorch(10, 4, device="cpu"))
+        port=port, coder=coder)
     srv.start()
-    rpc.reset_channels()
-    stub = rpc.volume_stub(f"127.0.0.1:{port + 10000}")
-    stub.AllocateVolume(vs.AllocateVolumeRequest(volume_id=VID,
-                                                 replication="000"),
-                        timeout=30)
+    mods["rpc"].reset_channels()
+    stub = mods["rpc"].volume_stub(f"127.0.0.1:{port + 10000}")
+    stub.AllocateVolume(mods["vs"].AllocateVolumeRequest(
+        volume_id=VID, replication="000"), timeout=30)
     nid, cookie, data, _ = NEEDLES[0]
     assert _request("POST", "/" + _fid(nid, cookie), data,
                     port=port)[0] == 201
-    yield srv, stub, port
+    return srv, stub, port
+
+
+def _stop_lone(srv, port) -> None:
     _drop_conn(port)
     srv.stop()
     srv._http_server.server_close()
 
 
-@pytest.mark.parametrize("name", DEFERRED_RPCS)
-def test_deferred_rpc_answers_unimplemented(lone_server, name):
-    """Every method of the service is registered; the deferred ones abort
-    with UNIMPLEMENTED and name the ROADMAP.md item that ports them."""
-    _, stub, _ = lone_server
-    m = {x["name"]: x for x in rpc.VOLUME_SERVICE[1]}[name]
-    fn = getattr(stub, name)
+@pytest.fixture(scope="module")
+def lone_server(tmp_path_factory):
+    """A masterless port server on its own address, with one needle."""
+    srv, stub, port = _lone(PORT, str(tmp_path_factory.mktemp("lone")),
+                            RSCodecTorch(10, 4, device="cpu"))
+    yield srv, stub, port
+    _stop_lone(srv, port)
+
+
+@pytest.fixture(scope="module")
+def lone_reference(tmp_path_factory):
+    """The reference's server, as `lone_server` is the port's."""
+    srv, stub, port = _lone(REF, str(tmp_path_factory.mktemp("lone_ref")),
+                            ref_new_coder(backend="cpu"))
+    yield srv, stub, port
+    _stop_lone(srv, port)
+
+
+def _rpc_answer(mods, stub, name: str):
+    """(status code, details or the serialized responses) of one call
+    with an empty request naming VID."""
+    m = {x["name"]: x for x in mods["rpc"].VOLUME_SERVICE[1]}[name]
     req = m["req"](volume_id=VID) if "volume_id" in \
         m["req"].DESCRIPTOR.fields_by_name else m["req"]()
-    with pytest.raises(grpc.RpcError) as e:
-        if m["cs"]:
-            fn(iter([req]), timeout=30)
-        elif m["ss"]:
-            list(fn(req, timeout=30))
-        else:
-            fn(req, timeout=30)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "ROADMAP.md" in e.value.details()
+    try:
+        got = list(getattr(stub, name)(req, timeout=30))
+    except grpc.RpcError as e:
+        # the list of configured backends is the process's registry
+        return e.code(), e.details().split(" (configured")[0]
+    return grpc.StatusCode.OK, [r.SerializeToString(deterministic=True)
+                                for r in got]
+
+
+@pytest.mark.parametrize("name", ANSWERED_RPCS)
+def test_the_tier_and_query_rpcs_answer_as_the_reference(
+        lone_server, lone_reference, name):
+    """The same request to both packages' servers gets the same answer:
+    a tier move to a backend nobody registered is INVALID_ARGUMENT, a
+    move back of a volume that is not tiered FAILED_PRECONDITION, and a
+    Query that names no needle an empty stream."""
+    want = _rpc_answer(REF, lone_reference[1], name)
+    assert _rpc_answer(PORT, lone_server[1], name) == want
+    assert want[0] != grpc.StatusCode.UNIMPLEMENTED
 
 
 @pytest.mark.parametrize("name,code", [
@@ -529,12 +557,30 @@ def test_every_rpc_of_the_service_has_a_handler():
 
 
 @pytest.mark.parametrize("path", ["/ui", "/", "/{fid}?width=16"])
-def test_deferred_http_routes_answer_501(lone_server, path):
-    _, _, port = lone_server
+def test_the_ui_and_resize_routes_answer_as_the_reference(
+        lone_server, lone_reference, path, monkeypatch):
+    """`/` and `/ui` serve the status page, equal to the reference's
+    with the clock pinned and the address named alike; a resize of a
+    needle that is no image serves its bytes."""
+    from seaweedfs_tpu.server import ui as ref_ui
+    from seaweedfs_tpu_torch.server import ui as port_ui
+
+    clock = type("Clock", (), {
+        "strftime": staticmethod(lambda fmt, *a: "2023-11-14 22:13:20")})
+    for mod in (ref_ui, port_ui):
+        monkeypatch.setattr(mod, "time", clock)
     nid, cookie = NEEDLES[0][:2]
-    status, _, body = _request("GET", path.format(fid=_fid(nid, cookie)),
-                               port=port)
-    assert status == 501 and b"ROADMAP.md" in body
+    got = {}
+    for name, (srv, _, port) in (("ref", lone_reference),
+                                 ("port", lone_server)):
+        status, hdrs, body = _request(
+            "GET", path.format(fid=_fid(nid, cookie)), port=port)
+        d = srv.store.locations[0].directory
+        got[name] = (status, hdrs.get("Content-Type"),
+                     body.replace(d.encode(), b"DIR")
+                     .replace(str(port).encode(), b"PORT"))
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == 200
 
 
 def test_a_write_that_needs_peers_fails_loudly(lone_server, monkeypatch):
@@ -782,13 +828,30 @@ def test_vacuum_refuses_to_copy_a_rotten_record(tmp_path_factory):
 
 
 @pytest.mark.parametrize("how", ["tier"])
-def test_unported_options_fail_at_construction(tmp_path, how):
-    kw = {"tier_backends": {"local": {"default": {"root": str(tmp_path)}}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_volume.VolumeServer(
-            directories=[str(tmp_path)], master=f"localhost:{NOBODY}",
-            port=_free_port_pair(), coder=RSCodecTorch(10, 4, device="cpu"),
-            **kw)
+def test_tier_backends_load_at_construction(tmp_path, how):
+    """`tier_backends=` registers the named backends as the reference's
+    constructor does: a local one under its kind, an s3 one under
+    `kind.name` with its endpoint and bucket."""
+    from seaweedfs_tpu.storage import backend as ref_backend
+    from seaweedfs_tpu_torch.storage import backend
+
+    kw = {"tier_backends": {
+        "local": {"default": {"root": str(tmp_path / "tier")}},
+        "s3": {"b2": {"endpoint": "http://127.0.0.1:1/", "bucket": "t"}}}}
+    got = {}
+    for name, mods, mod, coder in (
+            ("ref", REF, ref_backend, ref_new_coder(backend="cpu")),
+            ("port", PORT, backend, RSCodecTorch(10, 4, device="cpu"))):
+        d = tmp_path / name
+        d.mkdir()
+        srv = mods["volume"].VolumeServer(
+            directories=[str(d)], master=f"localhost:{NOBODY}",
+            port=_free_port_pair(), coder=coder, **kw)
+        srv.store.close()
+        local, s3 = mod.get_tier_backend("local"), mod.get_tier_backend("s3.b2")
+        got[name] = (type(local).__name__, local.name, local.root,
+                     type(s3).__name__, s3.name, s3.endpoint, s3.bucket)
+    assert got["port"] == got["ref"]
 
 
 @pytest.mark.parametrize("how", ["native", "env", "env-off"])

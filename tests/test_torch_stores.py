@@ -46,6 +46,7 @@ from seaweedfs_tpu_torch.server.filer import FilerServer
 from seaweedfs_tpu_torch.server.master import MasterServer
 from seaweedfs_tpu_torch.server.volume import VolumeServer
 from tests import wire_goldens as wg
+from tests import torch_ports
 
 
 # -- the network stores and their fakes ----------------------------------------
@@ -141,7 +142,7 @@ def _free_port() -> int:
     the kernel's ephemeral range, so no port-0 bind elsewhere can take
     one between this pick and the server's bind."""
     for _ in range(400):
-        port = _PORTS.randrange(12000, 21000)
+        port = torch_ports.draw(_PORTS, 12000, 21000)
         if port in _HANDED or {port, port + 10000, port + 11000} & _RESERVED:
             continue
         try:

@@ -7,13 +7,14 @@ reports, deltas, node loss), volume placement (`find_empty_slots` and
 `VolumeGrowth` under one seed: the reference's global `random`, the
 port's explicit generator), `ec.encode`'s rack-aware `_plan_placement`,
 the cluster membership registry, the master's HTTP and gRPC answers over
-one topology, and the shell commands that are not ported refusing with
-their ROADMAP.md item. One test holds the port alone: the master's
+one topology, the master's /ui page and its Raft member RPCs, and the
+shell's tier and Raft commands. One test holds the port alone: the master's
 vacuum pass commits every replica when a heartbeat folds mid-pass,
 where the reference skips one."""
 
 import io
 import random
+import re
 import secrets
 import socket
 
@@ -43,6 +44,7 @@ from seaweedfs_tpu_torch.shell.commands import ec as port_ec
 from seaweedfs_tpu_torch.shell.registry import run_command
 from seaweedfs_tpu_torch.storage.super_block import ReplicaPlacement
 from seaweedfs_tpu_torch.topology import volume_growth
+from tests import torch_ports
 
 SEEDS = range(6)
 REF = dict(sequence=ref_sequence, master=ref_master, pb=ref_master_pb2,
@@ -375,7 +377,7 @@ def test_cluster_membership_updates_alike(seed, monkeypatch):
 
 def _free_port_pair() -> int:
     for _ in range(200):
-        port = random.randrange(12000, 22000)
+        port = torch_ports.draw(random, 12000, 22000)
         try:
             for p in (port, port + 10000):
                 with socket.socket() as s:
@@ -465,6 +467,16 @@ def _answers(name: str) -> dict:
             lock_name="admin", previous_token=lease.token), timeout=30)
         out["relock"] = bool(stub.LeaseAdminToken(pb.LeaseAdminTokenRequest(
             lock_name="admin", client_name="b"), timeout=30).token)
+        for rpc_name in RAFT_MEMBER_RPCS:
+            try:
+                getattr(stub, rpc_name)(
+                    getattr(pb, rpc_name + "Request")(id="127.0.0.1:2"),
+                    timeout=30)
+                out[rpc_name] = "answered"
+            except grpc.RpcError as e:
+                out[rpc_name] = (e.code(), e.details())
+        out["ui"] = _ui_page(name)
+        out["shell"] = _shell_answers(name)
         # the metadata ring: two shards join, one renews (no epoch bump),
         # one leaves; every answer is the published ring
         ring_pb = mods["ring_pb"]
@@ -491,21 +503,55 @@ def test_the_master_answers_like_the_reference(key):
     assert _answers("port")[key] == _answers("ref")[key]
 
 
-PORT_ONLY = ("RaftAddServer", "RaftRemoveServer")
+RAFT_MEMBER_RPCS = ("RaftAddServer", "RaftRemoveServer")
+SHELL_LINES = (
+    "volume.tier.upload -node 127.0.0.1:1 -volumeId 1 -dest s3",
+    "volume.tier.download -node 127.0.0.1:1 -volumeId 1",
+    "volume.tier.move -toDiskType ssd",
+    "cluster.raft.add -id=127.0.0.1:2",
+    "cluster.raft.remove -id=127.0.0.1:2",
+)
 
 
-@pytest.mark.parametrize("name", PORT_ONLY)
-def test_deferred_master_rpcs_answer_unimplemented(name):
-    ms = _served_master(PORT)
-    try:
-        m = {x["name"]: x for x in rpc.MASTER_SERVICE[1]}[name]
-        stub = rpc.master_stub(f"127.0.0.1:{MASTER_PORT + 10000}")
-        with pytest.raises(grpc.RpcError) as e:
-            getattr(stub, name)(m["req"](), timeout=30)
-    finally:
-        _stop(ms, PORT)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "ROADMAP.md" in e.value.details()
+def _ui_page(name: str) -> bytes:
+    """The master's /ui with the page's clock pinned."""
+    from seaweedfs_tpu.server import ui as ref_ui
+    from seaweedfs_tpu_torch.server import ui as port_ui
+
+    clock = type("Clock", (), {
+        "strftime": staticmethod(lambda fmt, *a: "2023-11-14 22:13:20")})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_ui if name == "ref" else port_ui, "time", clock)
+        r = requests.get(f"http://127.0.0.1:{MASTER_PORT}/ui", timeout=30)
+    return r.status_code, r.headers["Content-Type"], r.content
+
+
+def _shell_answers(name: str) -> dict:
+    """What each of SHELL_LINES prints through one package's shell on
+    the served master (the admin lease taken as after `lock`)."""
+    if name == "ref":
+        from seaweedfs_tpu.shell.registry import run_command as run
+    else:
+        run = run_command
+    env = (REF if name == "ref" else PORT)["env"].CommandEnv(
+        f"127.0.0.1:{MASTER_PORT}")
+    env._lock_token = 1
+    got = {}
+    for line in SHELL_LINES:
+        out = io.StringIO()
+        rc = run(env, line, out)
+        # gRPC's debug string orders its fields as it pleases
+        got[line] = (rc, re.sub(r"\tdebug_error_string = .*\n", "",
+                                out.getvalue()))
+    return got
+
+
+@pytest.mark.parametrize("name", RAFT_MEMBER_RPCS)
+def test_the_raft_member_rpcs_answer_as_the_reference(name):
+    """A master without peers answers RaftAddServer and RaftRemoveServer
+    as the reference's does: FAILED_PRECONDITION, Raft not enabled."""
+    assert _answers("port")[name] == _answers("ref")[name]
+    assert _answers("port")[name][0] == grpc.StatusCode.FAILED_PRECONDITION
 
 
 def test_vacuum_commits_every_replica_when_a_heartbeat_folds_mid_pass(
@@ -562,36 +608,38 @@ def test_every_rpc_of_the_master_service_has_a_handler():
     assert all(callable(getattr(master.MasterGrpc, n)) for n in names)
 
 
-def test_a_master_with_peers_refuses_at_construction():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        master.MasterServer(ip="127.0.0.1", port=1, peers=["127.0.0.1:2"])
+def test_a_master_with_peers_forms_a_raft_group_at_construction(tmp_path):
+    """`peers=` builds the Raft node as the reference's constructor does:
+    a follower of term 0 that knows its peers, leading nobody yet."""
+    got = {}
+    for name, mods in (("ref", REF), ("port", PORT)):
+        ms = mods["master"].MasterServer(
+            ip="127.0.0.1", port=1, peers=["127.0.0.1:1", "127.0.0.1:2"],
+            raft_dir=str(tmp_path / name))
+        got[name] = (ms.raft.status(), ms.is_leader(), ms.leader_address())
+    assert got["port"] == got["ref"]
 
 
-def test_the_ui_answers_501_naming_its_item():
-    ms = _served_master(PORT)
-    try:
-        r = requests.get(f"http://127.0.0.1:{MASTER_PORT}/ui", timeout=30)
-    finally:
-        _stop(ms, PORT)
-    assert r.status_code == 501 and "ROADMAP.md" in r.json()["error"]
+def test_the_ui_answers_as_the_reference():
+    """The master's /ui over one topology: the same page, byte for byte,
+    with the clock pinned; it names every data node."""
+    assert _answers("port")["ui"] == _answers("ref")["ui"]
+    status, ctype, body = _answers("port")["ui"]
+    assert status == 200 and ctype.startswith("text/html")
+    assert b"Topology" in body
 
 
-# -- shell commands that are not ported ---------------------------------------------
+# -- the tier and Raft shell commands --------------------------------------------
 
 
-@pytest.mark.parametrize("line", [
-    "volume.tier.upload -node a:1 -volumeId 1 -dest s3",
-    "volume.tier.download -node a:1 -volumeId 1",
-    "volume.tier.move -toDiskType ssd",
-    "cluster.raft.add -id=a:1",
-    "cluster.raft.remove -id=a:1",
-])
-def test_shell_commands_not_ported_name_their_item(line):
-    env = port_env.CommandEnv("127.0.0.1:1")
-    env._lock_token = 1  # as after `lock`; nothing reaches a master
-    out = io.StringIO()
-    assert run_command(env, line, out) == 1
-    assert "ROADMAP.md" in out.getvalue()
+@pytest.mark.parametrize("line", SHELL_LINES)
+def test_the_tier_and_raft_shell_commands_answer_as_the_reference(line):
+    """Each line prints what the reference's shell prints on the same
+    single master: a tier move names the volume server it cannot reach,
+    `volume.tier.move` finds no ssd, a Raft membership change is refused
+    by a master without peers."""
+    assert _answers("port")["shell"][line] == _answers("ref")["shell"][line]
+    assert "ROADMAP.md" not in _answers("port")["shell"][line][1]
 
 
 def test_the_port_shell_registers_the_reference_commands_it_ports():
