@@ -37,6 +37,12 @@ event before they read a result, so ordering never depends on the
 flusher and the consumer sharing one stream. The flusher thread can
 optionally be NUMA-pinned (`SWFS_EC_DISPATCH_PIN`, utils/numa.py).
 
+Every flush holds one mutex, `_dispatch_mu`, from its lane's pop to its
+launch, and is timed there as phases (utils/trace.phase, lane `encode`
+or `reconstruct`): `ec.dispatch.section` for the whole hold,
+`ec.dispatch.pack` for the arena pack, and inside them the codec's
+`ec.codec.copy_in` and `ec.codec.launch` (ops/rs_torch.py).
+
 On a multi-device coder (parallel/mesh.ShardedCoder) the lanes split per
 chip, as in the reference: encode slabs round-robin over one lane per
 chip, each flushed as one product pinned there (`encode_parity_on`); a
@@ -81,7 +87,6 @@ from ..utils.stats import (
     EC_DISPATCH_STACK_BYTES,
     EC_DISPATCH_STACK_SLABS,
     EC_DISPATCH_WINDOW_WAIT,
-    EC_DISPATCH_ZEROFILL_ELIDED,
     EC_RECON_CACHE_COUNTER,
 )
 
@@ -116,6 +121,11 @@ def vshard_enabled() -> bool:
 def window_s() -> float:
     return float(os.environ.get("SWFS_EC_DISPATCH_WINDOW_MS",
                                 str(DEFAULT_WINDOW_MS))) / 1000.0
+
+
+def _lane_kind(key: tuple) -> str:
+    """The `lane` label of a lane key: "encode" or "reconstruct"."""
+    return "encode" if key[0] == "enc" else "reconstruct"
 
 
 # -- flush completion ----------------------------------------------------------
@@ -572,15 +582,15 @@ class EcDispatchScheduler:
         of an arena buffer (never zero-filled). Columns are independent
         under every GF matmul this scheduler dispatches, so packing needs
         no inter-slab padding and therefore no memset at all."""
-        rows = slabs[0].data.shape[0]
-        total = sum(s.width for s in slabs)
-        buf = self._arena.get(rows * total)
-        wide = buf.flat[: rows * total].reshape(rows, total)
-        off = 0
-        for s in slabs:
-            wide[:, off: off + s.width] = s.data
-            off += s.width
-        EC_DISPATCH_ZEROFILL_ELIDED.inc(rows * total)
+        with trace.phase("ec.dispatch.pack"):
+            rows = slabs[0].data.shape[0]
+            total = sum(s.width for s in slabs)
+            buf = self._arena.get(rows * total)
+            wide = buf.flat[: rows * total].reshape(rows, total)
+            off = 0
+            for s in slabs:
+                wide[:, off: off + s.width] = s.data
+                off += s.width
         return wide, buf
 
     def _pack_vstack(self, slabs: "list[_Slab]"):
@@ -588,19 +598,17 @@ class EcDispatchScheduler:
         (the form a multi-device coder splits whole slabs of). Only
         ragged tails (width < bmax) are zeroed; a uniform batch zeroes
         nothing."""
-        v = len(slabs)
-        rows = slabs[0].data.shape[0]
-        bmax = max(s.width for s in slabs)
-        region = v * rows * bmax
-        buf = self._arena.get(region)
-        stack = buf.flat[:region].reshape(v, rows, bmax)
-        tails = 0
-        for i, s in enumerate(slabs):
-            stack[i, :, : s.width] = s.data
-            if s.width < bmax:
-                stack[i, :, s.width:] = 0
-                tails += rows * (bmax - s.width)
-        EC_DISPATCH_ZEROFILL_ELIDED.inc(region - tails)
+        with trace.phase("ec.dispatch.pack"):
+            v = len(slabs)
+            rows = slabs[0].data.shape[0]
+            bmax = max(s.width for s in slabs)
+            region = v * rows * bmax
+            buf = self._arena.get(region)
+            stack = buf.flat[:region].reshape(v, rows, bmax)
+            for i, s in enumerate(slabs):
+                stack[i, :, : s.width] = s.data
+                if s.width < bmax:
+                    stack[i, :, s.width:] = 0
         return stack, buf
 
     # -- per-chip lane plumbing --------------------------------------------
@@ -703,8 +711,7 @@ class EcDispatchScheduler:
                 chip: int | None = None) -> EcFuture:
         fut = EcFuture(self, key)
         slab = _Slab(data, fut)
-        kind = "encode" if key[0] == "enc" else "reconstruct"
-        EC_DISPATCH_SLABS.inc(lane=kind,
+        EC_DISPATCH_SLABS.inc(lane=_lane_kind(key),
                               chip=_NO_CHIP if chip is None else str(chip))
         with self._cv:
             if self.closed:
@@ -768,7 +775,10 @@ class EcDispatchScheduler:
         self._flush_lane(key)
 
     def _flush_lane(self, key: tuple) -> None:
-        with self._dispatch_mu:
+        # the serial section every flush passes through, timed from the
+        # mutex's acquisition to its release on whichever thread flushes
+        with self._dispatch_mu, trace.phase("ec.dispatch.section",
+                                            lane=_lane_kind(key)):
             with self._cv:
                 slabs = self._lanes.pop(key, None)
             if slabs:
@@ -785,7 +795,7 @@ class EcDispatchScheduler:
                 self._flush_lane(k)
 
     def _dispatch(self, key: tuple, slabs: list[_Slab]) -> None:
-        kind = "encode" if key[0] == "enc" else "reconstruct"
+        kind = _lane_kind(key)
         chip = self._lane_chip(key)
         label = _NO_CHIP if chip is None else str(chip)
         now = time.perf_counter()

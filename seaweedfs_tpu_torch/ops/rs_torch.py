@@ -37,6 +37,7 @@ import threading
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import gf256, gfmat, rs_bits, rs_sel, rs_xor
 
 KERNELS = ("xor", "bits", "sel")
@@ -85,20 +86,23 @@ def dispatch_matmul(matrix: np.ndarray, data: torch.Tensor,
                     key: tuple) -> torch.Tensor:
     """out[R, B] = matrix[R, C] (x) data[C, B] through the selected
     formulation. `matrix` is the byte-form GF(256) matrix and `key` its
-    compact cache identity."""
+    compact cache identity. Timed as the phase `ec.codec.launch`: on a
+    CUDA device, the host's time to launch the kernel."""
     kind = kernel_choice()
-    if kind == "sel":
-        if key[0] not in DECODE_KEYS:
-            return rs_sel.gf_matmul_sel(matrix, data, key=key)
-        # K3 is compiled per matrix; a decode matrix exists per failure
-        # pattern (up to C(n, k) of them), so it takes the run-time-matrix
-        # kernel K1 and K3 keeps the one encode matrix per geometry
-        kind = "xor"
-    op = op_on_device((kind, *key), gfmat.derived(kind, key, matrix),
-                      data.device)
-    if kind == "xor":
-        return rs_xor.gf_matmul_xor(op, data)
-    return rs_bits.gf_matmul_bits(op, data)
+    with trace.phase("ec.codec.launch"):
+        if kind == "sel":
+            if key[0] not in DECODE_KEYS:
+                return rs_sel.gf_matmul_sel(matrix, data, key=key)
+            # K3 is compiled per matrix; a decode matrix exists per failure
+            # pattern (up to C(n, k) of them), so it takes the
+            # run-time-matrix kernel K1 and K3 keeps the one encode matrix
+            # per geometry
+            kind = "xor"
+        op = op_on_device((kind, *key), gfmat.derived(kind, key, matrix),
+                          data.device)
+        if kind == "xor":
+            return rs_xor.gf_matmul_xor(op, data)
+        return rs_bits.gf_matmul_bits(op, data)
 
 
 class RSCodecTorch:
@@ -131,12 +135,17 @@ class RSCodecTorch:
 
     def _rows(self, x, device=None) -> torch.Tensor:
         """uint8 tensor on `device` (default: the codec's) with unit stride
-        along bytes."""
-        if not isinstance(x, torch.Tensor):
-            arr = np.asarray(x, dtype=np.uint8)
-            if not arr.flags.writeable:  # torch wants writable host memory
-                arr = arr.copy()
-            x = torch.from_numpy(arr)
+        along bytes. A host array's copy is timed as the phase
+        `ec.codec.copy_in`."""
+        if isinstance(x, torch.Tensor):
+            return self._placed(x, device)
+        arr = np.asarray(x, dtype=np.uint8)
+        if not arr.flags.writeable:  # torch wants writable host memory
+            arr = arr.copy()
+        with trace.phase("ec.codec.copy_in"):
+            return self._placed(torch.from_numpy(arr), device)
+
+    def _placed(self, x: torch.Tensor, device) -> torch.Tensor:
         x = x.to(device=self.device if device is None else device,
                  dtype=torch.uint8)
         if x.dim() >= 1 and x.shape[-1] > 1 and x.stride(-1) != 1:

@@ -30,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..ops import dispatch
-from ..utils import numa
+from ..utils import numa, trace
 from . import idx as idx_mod
 from . import needle_map, types
 from .ec_locate import Geometry
@@ -63,6 +63,8 @@ class EncodeStats:
     #                          copy into the scheduler, or the direct call)
     device_wait_s: float = 0.0  # coordinator: blocked on parity results
     #                             (scheduler window, copies, kernel)
+    copy_out_s: float = 0.0  # the part of device_wait_s that copied the
+    #                          parity back to the host
     write_s: float = 0.0  # SUM across all shard-writer threads
     started: float = field(default_factory=time.perf_counter)
     ended: float = 0.0
@@ -363,8 +365,15 @@ def generate_ec_files(
             for i in range(k):
                 writers.put(i, data[i], nbytes, release)
             t1 = time.perf_counter()
-            parity = to_host(parity_fut)  # waits for the scheduler + device
-            stats.device_wait_s += time.perf_counter() - t1
+            if isinstance(parity_fut, dispatch.EcFuture):
+                # the scheduler's window, its queue, copies and kernel
+                parity_fut = parity_fut.result()
+            t2 = time.perf_counter()
+            with trace.phase("ec.encode.copy_out", lane="encode"):
+                parity = to_host(parity_fut)
+            t3 = time.perf_counter()
+            stats.copy_out_s += t3 - t2
+            stats.device_wait_s += t3 - t1
             for j in range(m):
                 # parity rows are views of one fresh array; numpy refcounts
                 # keep it alive until the last writer drops its view

@@ -161,6 +161,12 @@ class Histogram(_Metric):
             return {"count": sum(self._totals[k] for k in keys),
                     "sum": sum(self._sums[k] for k in keys)}
 
+    def totals(self, part: str) -> dict[tuple, float]:
+        """label key -> the running sum ("sum") or the number of
+        observations ("count") of each series."""
+        with self._lock:
+            return dict(self._sums if part == "sum" else self._totals)
+
     def time(self, **labels):
         return _Timer(self, labels)
 
@@ -257,8 +263,8 @@ def gather(exemplars: bool = False) -> str:
     `/metrics?exemplars=1` — so plain 0.0.4 parsers stay safe)."""
     with _REG_MU:
         metrics = list(_REGISTRY)
-    return "\n".join(m.render(exemplars=exemplars)
-                     for m in metrics) + "\n"
+    rendered = (m.render(exemplars=exemplars) for m in metrics)
+    return "\n".join(r for r in rendered if r) + "\n"
 
 
 # -- the metric families the reference defines (metrics_names.go) ----------
@@ -389,11 +395,6 @@ EC_DISPATCH_ARENA_POOLED = Gauge(
     "SeaweedFS_ec_dispatch_arena_pooled_bytes",
     "Arena bytes sitting in the free pool, ready to absorb the next "
     "flush without an allocation.")
-EC_DISPATCH_ZEROFILL_ELIDED = Counter(
-    "SeaweedFS_ec_dispatch_zerofill_elided_bytes",
-    "Stack bytes whose zero-fill was elided because every byte of the "
-    "packed region is overwritten by slab payload (column-compact wide "
-    "packing).")
 
 
 # -- streaming replica->EC conversion: the pipelined archival
@@ -813,6 +814,43 @@ METRICS_PUSH_OPS = Counter(
     "loop retries with backoff and never dies on a refused connection.")
 
 
+# the EC plane's phases (utils/trace.phase), and the dispatch scheduler's
+# window wait read as counters
+
+
+def _phase_provider() -> dict:
+    return {(("lane", lane), ("phase", name)): s
+            for (name, lane), s in _trace_mod().STORE.phase_seconds().items()}
+
+
+EC_PHASE_SECONDS = _PullCounter(
+    "SeaweedFS_ec_phase_seconds",
+    "Host seconds inside each phase of the EC plane (utils/trace.phase: "
+    "ec.dispatch.section, ec.dispatch.pack, ec.codec.copy_in, "
+    "ec.codec.launch, ec.encode.copy_out) by scheduler lane.",
+    _phase_provider)
+
+
+class _HistogramTotals(_PullCounter):
+    """The running `_sum` or `_count` of a histogram's series as a counter,
+    for readers that snapshot counters alone. /metrics already carries
+    both series under the histogram, so this renders nothing."""
+
+    def __init__(self, hist: Histogram, part: str):
+        super().__init__(f"{hist.name}_{part}",
+                         f"The {part} of {hist.name}.",
+                         lambda: hist.totals(part))
+
+    def render(self, exemplars: bool = False) -> str:
+        return ""
+
+
+EC_DISPATCH_WINDOW_WAIT_SUM = _HistogramTotals(EC_DISPATCH_WINDOW_WAIT,
+                                               "sum")
+EC_DISPATCH_WINDOW_WAIT_COUNT = _HistogramTotals(EC_DISPATCH_WINDOW_WAIT,
+                                                 "count")
+
+
 # the hand-written CUDA kernels' launch counts (ops/_build.py: each
 # wrapper counts where it launches), pulled from the kernel modules this
 # process has imported — a server process's proof that its EC work ran
@@ -962,7 +1000,6 @@ def ec_dispatch_stats() -> dict:
         "hitRate": round(a_hits / a_total, 4) if a_total else 0.0,
         "inUseBytes": int(EC_DISPATCH_ARENA_INUSE.value()),
         "pooledBytes": int(EC_DISPATCH_ARENA_POOLED.value()),
-        "zeroFillElidedBytes": int(EC_DISPATCH_ZEROFILL_ELIDED.value()),
     }
     return out
 

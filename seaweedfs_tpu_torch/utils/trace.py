@@ -34,12 +34,27 @@ clock per-event — `time.time()` is not monotonic and a step (NTP slew,
 manual set) would corrupt durations. All timing derives from
 `time.perf_counter()`; wall-clock timestamps come from a single
 monotonic-anchored epoch captured at import.
+
+Phases (`phase()`) time the EC plane's per-slab host work where it
+happens, with no request around it: the dispatch scheduler's serial
+section and pack, the codec's copy in and launch, the encode pipeline's
+copy back. The store keeps per-(phase, lane) seconds, which
+`SeaweedFS_ec_phase_seconds` pulls, and a ring of intervals of their own
+(`phase_intervals`), apart from the request ring so a busy encode never
+evicts the spans `/debug/traces` serves. While a `torch.profiler` records
+on the phase's thread, a phase is also a `record_function` range of its
+name, so the exported trace shows it beside the copies and kernels it
+started; the profiler records the ranges of the thread that started it
+alone, so a phase on another thread is placed on the device's clock
+through its ring interval instead (a reader maps perf_counter onto the
+profiler's clock by a range of known perf_counter time).
 """
 
 from __future__ import annotations
 
 import os
 import random
+import sys
 import threading
 from collections import OrderedDict, deque
 
@@ -59,6 +74,10 @@ _HEX = set("0123456789abcdef")
 DEFAULT_SLOW_MS = 250.0
 DEFAULT_RING_SPANS = 4096
 DEFAULT_RETAIN_TRACES = 128
+# phase intervals held: a 15 s window of eight volumes encoding through
+# one H100 records about 6,000, and a reader asks back over such a window
+# and the rounds that finish after it
+PHASE_RING = 65536
 # hard cap on spans held per RETAINED trace: a client reusing one fixed
 # traceparent on every request funnels everything into one trace id —
 # without this, the first slow span would pin a list that then grows
@@ -408,6 +427,58 @@ def span(name: str, *, carrier=None, parent=None, child_only: bool = False,
     return _SpanCtx(sp, activate)
 
 
+class _Phase:
+    """Slotted context manager around one phase (see `phase`)."""
+
+    __slots__ = ("name", "lane", "_t0", "_prev", "_rf")
+
+    def __init__(self, name: str, lane: str | None):
+        self.name = name
+        self.lane = lane
+
+    def __enter__(self) -> "_Phase":
+        self._prev = getattr(_tls, "lane", None)
+        if self.lane is None:
+            self.lane = self._prev or "-"
+        _tls.lane = self.lane
+        self._rf = None
+        torch = sys.modules.get("torch")  # not imported: nothing records
+        if torch is not None and torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        t1 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(et, ev, tb)
+        _tls.lane = self._prev
+        STORE.record_phase(self.name, self.lane, self._t0, t1)
+        return False
+
+
+def phase(name: str, lane: str | None = None):
+    """Time one phase of the EC plane's host work on this thread.
+
+    `lane` names the scheduler lane the work serves ("encode",
+    "reconstruct"); a phase without one takes the lane of the phase it
+    runs inside on this thread, "-" outside any. A no-op when SWFS_TRACE
+    turns tracing off."""
+    if not enabled():
+        return _NOOP_CTX
+    return _Phase(name, lane)
+
+
+def phase_intervals(name: str, lane: str, t0: float, t1: float
+                    ) -> tuple[list[tuple[float, float]], bool]:
+    """The recorded intervals of phase `name` on `lane` that overlap
+    [t0, t1] (perf_counter seconds), oldest first, and whether the ring
+    still holds every interval that ended at or after t0 (False once it
+    has dropped one of them: the list is then incomplete)."""
+    return STORE.phase_intervals(name, lane, t0, t1)
+
+
 # -- the per-process span store --------------------------------------------
 
 
@@ -421,10 +492,14 @@ class TraceStore:
     Hot-path discipline: record() takes ONE lock, appends the Span
     OBJECT (the JSON dict is built lazily at read time), and counts
     into plain ints — the SeaweedFS_trace_* metric families PULL from
-    here at scrape time instead of charging every span a metric lock."""
+    here at scrape time instead of charging every span a metric lock.
+    Phases (record_phase) take the same lock, add to plain per-(phase,
+    lane) seconds that SeaweedFS_ec_phase_seconds pulls, and go to a
+    ring of their own."""
 
     def __init__(self, ring_spans: int | None = None,
-                 retain_traces: int | None = None):
+                 retain_traces: int | None = None,
+                 phase_ring: int = PHASE_RING):
         if ring_spans is None:
             ring_spans = int(os.environ.get("SWFS_TRACE_BUF",
                                             str(DEFAULT_RING_SPANS)))
@@ -439,6 +514,10 @@ class TraceStore:
         self.retained_total = 0
         self._span_counts: dict[str, int] = {}       # by component
         self._retained_counts: dict[str, int] = {}   # by reason
+        self._phases: deque = deque(maxlen=max(phase_ring, 16))
+        self._phase_seconds: dict[tuple[str, str], float] = {}
+        # the latest end of a phase interval the ring no longer holds
+        self._phase_dropped_end = float("-inf")
 
     def record(self, sp: Span) -> None:
         pin = bool(sp.error) or sp.duration_ms >= slow_ms()
@@ -467,6 +546,33 @@ class TraceStore:
                 s for s in self._ring if s.trace_id == sp.trace_id]
             while len(self._retained) > self._retain_max:
                 self._retained.popitem(last=False)
+
+    def record_phase(self, name: str, lane: str, t0: float,
+                     t1: float) -> None:
+        key = (name, lane)
+        with self._lock:
+            self._phase_seconds[key] = \
+                self._phase_seconds.get(key, 0.0) + (t1 - t0)
+            ring = self._phases
+            if len(ring) == ring.maxlen:
+                self._phase_dropped_end = max(self._phase_dropped_end,
+                                              ring[0][3])
+            ring.append((name, lane, t0, t1))
+
+    def phase_seconds(self) -> dict[tuple[str, str], float]:
+        """(phase, lane) -> seconds recorded (the
+        SeaweedFS_ec_phase_seconds pull source)."""
+        with self._lock:
+            return dict(self._phase_seconds)
+
+    def phase_intervals(self, name: str, lane: str, t0: float, t1: float
+                        ) -> tuple[list[tuple[float, float]], bool]:
+        with self._lock:
+            held = list(self._phases)
+            whole = self._phase_dropped_end < t0
+        return ([(a, b) for n, ln, a, b in held
+                 if n == name and ln == lane and b >= t0 and a <= t1],
+                whole)
 
     def span_counts(self) -> dict[str, int]:
         """component -> spans recorded (the SeaweedFS_trace_spans pull
@@ -529,6 +635,9 @@ class TraceStore:
         with self._lock:
             self._ring.clear()
             self._retained.clear()
+            for p in self._phases:
+                self._phase_dropped_end = max(self._phase_dropped_end, p[3])
+            self._phases.clear()
 
 
 STORE = TraceStore()
